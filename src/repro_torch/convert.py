@@ -1,0 +1,61 @@
+"""JAX pytrees (as numpy arrays) to torch tensors, layout kept exactly.
+
+Counterpart of the layouts built by ``repro/models/model.py:117-142``
+(``init_params``) and ``:554-585`` (``init_cache``): ``params["blocks"]``
+is a list with one entry per block-pattern position, each leaf stacked
+over repetitions on axis 0, and the KV cache is ``{"blocks": [{"k", "v"}]}``
+with leaves ``(reps, B, C, KV, hd)``. The caller hands over the pytree with
+numpy leaves (``jax.tree.map(np.asarray, tree)``), so this module never
+touches jax; bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays and
+are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy", "to_numpy"]
+
+
+def to_tensor(a, device="cpu", dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """One numpy array (float32/int/bool or bfloat16) as a tensor."""
+    a = np.array(a)            # a writable copy: jax hands out read-only
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree: Any, device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> Any:
+    """Param pytree -> same-structure dict/list of tensors. ``dtype``
+    casts every floating leaf; ``None`` keeps each leaf's own dtype (the
+    JAX init keeps norm scales in float32 under bfloat16 weights)."""
+    return _map(tree, lambda a: to_tensor(a, device, dtype))
+
+
+# the cache pytree ({"blocks": [{"k": (reps,B,C,KV,hd), "v": ...}]}) converts
+# leaf by leaf exactly like the params
+cache_from_numpy = params_from_numpy
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> float32/int numpy array on the host (bfloat16 upcast)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

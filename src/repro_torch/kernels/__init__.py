@@ -1,0 +1,36 @@
+"""Hand-written CUDA kernels for the serving path, with their plain
+PyTorch versions (port of ``repro/kernels``).
+
+top2gap          — the paper's Eq. 5 certainty gap and the greedy argmax
+decode_attention — one-token GQA attention over the model's KV cache
+flash_attention  — causal / windowed prefill attention with GQA
+
+Each wrapper runs its plain version (``ref``) for a CPU tensor and its
+kernel for a CUDA tensor, and counts the kernel's launches in its
+``launches`` attribute. ``build`` compiles ``csrc/*.cu`` with nvcc.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import top2gap as _top2gap
+
+__all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
+
+# kernel name -> wrapper (each carries an integer ``launches`` count)
+WRAPPERS = {
+    "top2gap": _top2gap.top2gap,
+    "decode_attention": _decode.decode_attention,
+    "flash_attention": _flash.flash_attention,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,91 @@
+"""One-token GQA decode attention over the model's KV-cache layout
+(port of ``repro/kernels/decode_attention.py:23-100``; CUDA kernel in
+``csrc/decode_attention.cu``).
+
+Unlike the Pallas kernel, which takes ``(B, HKV, C, D)``, the wrapper
+reads the model's ``(B, C, KV, hd)`` per-layer cache view in place, by
+strides, so a decode step makes no transpose. On a CPU tensor it runs the
+plain version (``ref.decode_attention_ref``); on a CUDA tensor it launches
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Union
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+__all__ = ["decode_attention", "MAX_GROUP", "HEAD_DIMS"]
+
+MAX_GROUP = 8              # query heads per KV head the kernel serves
+HEAD_DIMS = (32, 64)       # head widths the kernel is instantiated for
+# (q dtype, cache dtype) -> the kernel's dtype code; f32 q over a bf16
+# cache is how f32 params attend over the engine's bf16 slot pool
+_DTYPES = {(torch.float32, torch.float32): 0,
+           (torch.bfloat16, torch.bfloat16): 1,
+           (torch.float32, torch.bfloat16): 2}
+_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+         + (ctypes.c_longlong,) * 4 + (ctypes.c_int, ctypes.c_void_p))
+
+
+def _aligned(t: torch.Tensor, dims) -> bool:
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (t.stride(d) * es) % 16 == 0 for d in dims)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """q (B, H, hd); k/v (B, C, KV, hd) (any strides over B and C, dense
+    over KV and hd); valid_len scalar or (B,) — row b attends to cache slots
+    ``< valid_len[b]``; q and the cache f32 or bf16 alike, or f32 q over
+    a bf16 cache. -> (B, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("decode_attention: q must be (B, H, hd) and k, v "
+                         "(B, C, KV, hd)")
+    b, h, d = q.shape
+    _, c, kv, dk = k.shape
+    if k.shape[0] != b or dk != d:
+        raise ValueError("decode_attention: q and the cache disagree on B "
+                         "or hd")
+    code = _DTYPES.get((q.dtype, k.dtype))
+    if code is None or v.dtype != k.dtype:
+        raise TypeError(f"decode_attention: q {q.dtype}, k {k.dtype}, v "
+                        f"{v.dtype}: needs one dtype (f32 or bf16), or f32 q "
+                        f"over a bf16 cache")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("decode_attention: tensors on different devices")
+    if h % kv or h // kv > MAX_GROUP or d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: needs H % KV == 0, "
+                         f"H / KV <= {MAX_GROUP}, hd in {HEAD_DIMS}")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    for t in (k, v):
+        if t.stride(3) != 1 or t.stride(2) != d or not _aligned(t, (0, 1)):
+            raise ValueError("decode_attention: the cache must be dense "
+                             "over (KV, hd) and 16-byte aligned")
+    if not isinstance(valid_len, torch.Tensor):
+        valid_len = torch.full((b,), int(valid_len), dtype=torch.int32,
+                               device=q.device)
+    vl = torch.broadcast_to(valid_len, (b,))
+    if vl.dtype != torch.int32 or vl.device != q.device:
+        vl = vl.to(device=q.device, dtype=torch.int32)
+    vl = vl.contiguous()
+    out = torch.empty_like(q)
+    fn = build.function("decode_attention", "decode_attention_launch", _ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
+            out.data_ptr(), b, h, kv, c, d, k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), code,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,76 @@
+"""Causal (optionally sliding-window) or full flash attention with GQA
+(port of ``repro/kernels/flash_attention.py:26-112``; CUDA kernel in
+``csrc/flash_attention.cu``).
+
+The wrapper reads q as ``(B, S, H, hd)`` and k/v as ``(B, S, KV, hd)`` —
+the model's layouts — by strides, and writes ``(B, S, H, hd)``. On a CPU
+tensor it runs the plain version (``ref.flash_attention_ref``); on a CUDA
+tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (32, 64)       # head widths the kernel is instantiated for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+         + (ctypes.c_longlong,) * 8 + (ctypes.c_int,) * 3
+         + (ctypes.c_void_p,))
+
+
+def _dense_heads(t: torch.Tensor) -> bool:
+    es = t.element_size()
+    return (t.stride(3) == 1 and t.stride(2) == t.shape[3]
+            and t.data_ptr() % 16 == 0
+            and all((t.stride(i) * es) % 16 == 0 for i in (0, 1)))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype.
+    Query i sees key j iff j <= i and (window == 0 or j > i - window);
+    ``causal=False`` sees every key."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention: q must be (B, S, H, hd) and k, v "
+                         "(B, S, KV, hd)")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError("flash_attention: q, k, v disagree on B, S or hd")
+    kv = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k, v must share one dtype "
+                        "(f32 or bf16)")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention: tensors on different devices")
+    if h % kv or d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: needs H % KV == 0 and hd in "
+                         f"{HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
+    if not all(_dense_heads(t) for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be dense over "
+                         "(heads, hd) and 16-byte aligned")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    fn = build.function("flash_attention", "flash_attention_launch", _ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, kv, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            int(causal), int(window), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the three kernels on the serving path
+(port of ``repro/kernels/ref.py`` and of the attention math in
+``repro/models/attention.py:76-89``).
+
+Each function computes what its CUDA kernel computes, from float32
+upcasts, in the model's layouts:
+
+* ``top2gap_ref``          — (B, V) -> (top1 - top2 gap f32, argmax i32);
+                             an exact top-1 tie gives gap 0 and the lowest
+                             index (the Pallas kernel's masked second max);
+* ``decode_attention_ref`` — one query token per row against the cache in
+                             its ``(B, C, KV, hd)`` layout, keys
+                             ``< valid_len[b]`` per row;
+* ``flash_attention_ref``  — causal (optionally windowed) or full
+                             attention over ``(B, S, H, hd)`` queries and
+                             ``(B, S, KV, hd)`` keys/values, GQA by head
+                             grouping (query head h reads KV head h // G).
+
+The CPU tests hold them against the JAX package; ``chip_smoke.py`` holds
+each kernel against them on the card. The wrappers call them only for
+tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+
+NEG_INF = -1e30
+
+__all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref"]
+
+
+def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores (B, V) -> (gap (B,) f32, argmax (B,) i32). Paper Eq. 5.
+
+    Top-1 and its (lowest) index, then the max with that one entry masked
+    out: a second entry equal to the top-1 survives the mask, so an exact
+    tie gives gap 0."""
+    x = scores.float()
+    idx = torch.argmax(x, dim=-1)
+    m1 = torch.gather(x, -1, idx[:, None])[:, 0]
+    rest = x.scatter(-1, idx[:, None], float("-inf"))
+    m2 = rest.max(dim=-1).values
+    return m1 - m2, idx.to(torch.int32)
+
+
+def _valid_len(valid_len: Union[int, torch.Tensor], b: int,
+               device: torch.device) -> torch.Tensor:
+    vl = torch.as_tensor(valid_len, device=device)
+    return torch.broadcast_to(vl, (b,)).to(torch.int64)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len: Union[int, torch.Tensor]
+                         ) -> torch.Tensor:
+    """q (B, H, hd) one token per row; k/v (B, C, KV, hd); valid_len scalar
+    or (B,) — row b attends to cache slots ``< valid_len[b]``.
+    -> (B, H, hd) in q's dtype."""
+    b, h, d = q.shape
+    c, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, kv, g, d)
+    scores = torch.einsum("bkgd,bckd->bkgc", qf, k.float()) / math.sqrt(d)
+    vl = _valid_len(valid_len, b, q.device)
+    keep = torch.arange(c, device=q.device)[None, :] < vl[:, None]   # (B,C)
+    scores = scores.masked_fill(~keep[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", probs, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype.
+    Query i sees key j iff j <= i and (window == 0 or j > i - window);
+    ``causal=False`` sees every key."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, s, kv, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(d)
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None]
+        kj = torch.arange(s, device=q.device)[None, :]
+        keep = kj <= qi
+        if window > 0:
+            keep &= kj > qi - window
+        scores = scores.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)

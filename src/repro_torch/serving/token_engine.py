@@ -1,0 +1,575 @@
+"""Token-level serving engine: continuous batching over the model's
+``prefill``/``decode_step``, with a device-resident fused decode loop
+(port of ``repro/serving/token_engine.py:78-696``).
+
+* ``SlotEngine`` — one model's resident decode batch: a fixed pool of
+  ``n_slots`` KV-cache slots (one ``init_cache`` allocation, batch axis 1
+  of the rep-stacked cache tensors) updated IN PLACE by every decode step,
+  with a per-slot ``(B,)`` ``cache_index`` (the ragged-decode path).
+  Requests join by prefilling and scattering their cache into free slots;
+  rows are independent under the per-row masks.
+* ``TokenEngine`` — a cascade of SlotEngines driven by the same
+  ``ContinuousBatcher`` decisions as the JAX engine and the token DES:
+  admission at token boundaries and mid-stream escalation from a float64
+  ``StreamingCertainty`` fold of per-token top-2 gaps. Escalation carries
+  the PROMPT to the next model, never the cache.
+
+Two execution modes, as in the JAX engine:
+
+* ``fused`` (default) — greedy argmax, the top-2-gap reduction and the
+  certainty fold run on the device (``models.model.decode_fused_steps``),
+  so each step ships (B,) tokens, gaps and certainties to the host; with
+  ``spec_k`` > 1, K steps run per call when nothing waits and no row is
+  near a decision boundary, and the host replays the boundary decisions
+  over the (K, B) traces. Joiners prefill in ONE right-padded call per
+  boundary, padded to power-of-two (length, batch) buckets.
+* ``reference`` — one decode call per step and per-joiner batch-1
+  prefills; the host folds each step's gaps. Unlike the JAX engine, which
+  ships the full (B, V) logits to the host, the argmax and top-2 gap run
+  on the device (the top2gap kernel) and only (B,) tokens and gaps come
+  back.
+
+PyTorch runs eagerly, so the JAX engine's per-entry-point executable
+counts (``compile_counts``) have no counterpart; ``stats.prefill_shapes``
+records the same bounded set of padded prefill shapes. The telemetry hooks
+of the JAX engine are not ported yet.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.certainty import (StreamingCertainty, device_fold_init,
+                                        device_fold_set_rows)
+from repro_torch.core.gears import Gear
+from repro_torch.core.scheduling import (ContinuousBatcher, SchedulerConfig,
+                                         SchedulerCore)
+from repro_torch.kernels.top2gap import argmax_gap
+from repro_torch.models import model as model_lib
+
+__all__ = ["SlotEngine", "TokenEngine", "TokenRequest", "TokenResult",
+           "SlotEngineStats", "greedy_generate"]
+
+
+def greedy_generate(params, cfg, prompt: np.ndarray, max_new: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference single-request greedy decode: prefill + N x decode_step.
+
+    prompt (L,) int32 -> (tokens (max_new,), per-token top-2 gaps
+    (max_new,)), on the device the params live on; each step's argmax and
+    gap run there too."""
+    toks = np.asarray(prompt, np.int32)[None, :]
+    dev = params["embed"]["embedding"].device
+    logits, cache = model_lib.prefill(params, cfg, {"tokens": toks},
+                                      cache_len=toks.shape[1] + max_new)
+    out, gaps = [], []
+    pos = toks.shape[1]
+    for _ in range(max_new):
+        tok_d, gap_d = argmax_gap(logits)
+        nxt = int(tok_d[0])
+        gaps.append(float(gap_d[0]))
+        out.append(nxt)
+        step = torch.full((1, 1), nxt, dtype=torch.int64, device=dev)
+        logits, cache = model_lib.decode_step(
+            params, cfg, step, cache,
+            torch.tensor([pos], dtype=torch.int32, device=dev))
+        pos += 1
+    return np.asarray(out, np.int32), np.asarray(gaps, np.float64)
+
+
+def _pow2_buckets(lo: int, hi: int) -> List[int]:
+    """Powers of two in [lo, hi), then hi itself as the clamp bucket."""
+    out = []
+    b = lo
+    while b < hi:
+        out.append(b)
+        b *= 2
+    out.append(hi)
+    return out
+
+
+@dataclass
+class SlotEngineStats:
+    """Hot-loop instrumentation: prefill and decode calls, decode steps
+    executed, and the analytic host-transfer byte counts of the step
+    outputs/inputs."""
+    prefill_calls: int = 0          # prefill invocations
+    prefill_prompts: int = 0        # prompts prefilled across those calls
+    decode_calls: int = 0           # decode invocations
+    decode_steps: int = 0           # decode steps executed (sum of K)
+    bytes_to_host: int = 0          # step outputs shipped device -> host
+    bytes_to_device: int = 0        # step operands shipped host -> device
+    prefill_shapes: Set[Tuple[int, int]] = field(default_factory=set)
+
+
+class SlotEngine:
+    """One model's resident decode batch over a fixed KV-slot pool."""
+
+    def __init__(self, name: str, params, cfg, n_slots: int, max_len: int,
+                 min_len_bucket: int = 8,
+                 device: Union[str, torch.device] = "cuda"):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if max_len < 2:
+            raise ValueError(f"max_len must be >= 2, got {max_len}")
+        self.device = resolve_device(device)
+        if params["embed"]["embedding"].device != self.device:
+            raise ValueError(
+                f"{name}: params live on "
+                f"{params['embed']['embedding'].device}, engine on "
+                f"{self.device}")
+        self.name = name
+        self.params = params
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        # a bf16 pool whatever the params' dtype, as the JAX engine's
+        # init_cache default: f32 runs attend over bf16-rounded K/V
+        self.cache = model_lib.init_cache(cfg, n_slots, max_len,
+                                          device=self.device)
+        self.free: List[int] = list(range(n_slots - 1, -1, -1))  # pop -> 0
+        # per-slot context depth (tokens already in cache); 0 = idle slot
+        self.pos = np.zeros(n_slots, np.int32)
+        self.active = np.zeros(n_slots, bool)
+        self.stats = SlotEngineStats()
+        # --- fused-loop state (device-resident) --------------------------
+        self.dev_pos = torch.zeros(n_slots, dtype=torch.int32,
+                                   device=self.device)
+        self.dev_tok = torch.zeros(n_slots, dtype=torch.int32,
+                                   device=self.device)
+        self.dev_active = torch.zeros(n_slots, dtype=torch.bool,
+                                      device=self.device)
+        self._active_dirty = False
+        self._fold = device_fold_init(n_slots, self.device)
+        self.len_buckets = _pow2_buckets(min(min_len_bucket, max_len),
+                                         max_len)
+        self.batch_buckets = _pow2_buckets(1, n_slots)
+
+    @property
+    def n_active(self) -> int:
+        return self.n_slots - len(self.free)
+
+    def _scatter(self, rows: torch.Tensor, new_cache, n: int) -> None:
+        """Write the first ``n`` batch rows of a prefill cache into the
+        pool lanes ``rows`` (batch axis 1), overwriting whole lanes so a
+        previous occupant's contents cannot leak."""
+        for pool, new in zip(self.cache["blocks"], new_cache["blocks"]):
+            for name in ("k", "v"):
+                pool[name][:, rows] = new[name][:, :n].to(pool[name].dtype)
+
+    # ------------------------------------------------------------- joins
+
+    def _check_prompt(self, prompt: np.ndarray) -> np.ndarray:
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError("prompt must be a non-empty 1-D token array")
+        if prompt.size >= self.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size} tokens) leaves no decode headroom "
+                f"in a {self.max_len}-token slot")
+        return prompt
+
+    def prefill_into_slot(self, prompt: np.ndarray
+                          ) -> Tuple[int, int, float]:
+        """Prefill one prompt and scatter its cache into a free slot
+        (reference path). Returns (slot index, first token, its top-2 gap);
+        the argmax and gap run on the device."""
+        if not self.free:
+            raise RuntimeError(f"{self.name}: no free decode slot")
+        prompt = self._check_prompt(prompt)
+        logits, cache1 = model_lib.prefill(
+            self.params, self.cfg, {"tokens": prompt[None, :]},
+            cache_len=self.max_len)
+        tok_d, gap_d = argmax_gap(logits)
+        slot = self.free.pop()
+        self._scatter(torch.tensor([slot], device=self.device), cache1, 1)
+        self.pos[slot] = prompt.size
+        self.active[slot] = True
+        self._active_dirty = True
+        self.stats.prefill_calls += 1
+        self.stats.prefill_prompts += 1
+        self.stats.prefill_shapes.add((1, int(prompt.size)))
+        self.stats.bytes_to_device += prompt.size * 4
+        self.stats.bytes_to_host += 8              # (tok, gap)
+        return slot, int(tok_d[0]), float(gap_d[0])
+
+    def _len_bucket(self, n: int) -> int:
+        for b in self.len_buckets:
+            if n <= b:
+                return b
+        return self.len_buckets[-1]
+
+    def _batch_bucket(self, n: int) -> int:
+        for b in self.batch_buckets:
+            if n <= b:
+                return b
+        return self.batch_buckets[-1]
+
+    def _join_rows(self, slots: Sequence[int], plens: np.ndarray,
+                   toks: np.ndarray, gaps: np.ndarray) -> None:
+        """Sync the fused loop's device-resident rows for new joiners:
+        positions, next-token feeds, and the certainty fold re-seeded with
+        each request's first (prefill) gap."""
+        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        self.dev_pos[rows] = torch.as_tensor(plens.astype(np.int32),
+                                             device=self.device)
+        self.dev_tok[rows] = torch.as_tensor(toks.astype(np.int32),
+                                             device=self.device)
+        self._fold = device_fold_set_rows(
+            self._fold, rows,
+            torch.as_tensor(np.asarray(gaps, np.float32), device=self.device))
+        self._active_dirty = True
+
+    def prefill_batch(self, prompts: Sequence[np.ndarray]
+                      ) -> Tuple[List[int], np.ndarray, np.ndarray]:
+        """Prefill all of a boundary's joiners (fused path): one
+        right-padded call, prompts padded to the smallest power-of-two
+        length bucket covering the longest joiner and the batch to a batch
+        bucket; the argmax/top-2-gap reduction runs on the device. Where
+        padding is not exact (a sliding-window ring shorter than the
+        bucket) ``prefill_bucketed`` raises: the exact-length prefill path
+        for such configs is not yet ported.
+
+        Returns (slots, first tokens (n,), first gaps (n,))."""
+        prompts = [self._check_prompt(p) for p in prompts]
+        n = len(prompts)
+        if n == 0:
+            return [], np.zeros(0, np.int32), np.zeros(0, np.float32)
+        if n > len(self.free):
+            raise RuntimeError(
+                f"{self.name}: {n} joiners for {len(self.free)} free slots")
+        lb = self._len_bucket(max(p.size for p in prompts))
+        bb = self._batch_bucket(n)
+        arr = np.zeros((bb, lb), np.int32)
+        lens = np.ones((bb,), np.int32)
+        for i, p in enumerate(prompts):
+            arr[i, :p.size] = p
+            lens[i] = p.size
+        logits, cache1 = model_lib.prefill_bucketed(
+            self.params, self.cfg, arr, lens, cache_len=self.max_len)
+        tok_d, gap_d = argmax_gap(logits)
+        slots = [self.free.pop() for _ in range(n)]
+        self._scatter(torch.as_tensor(slots, device=self.device), cache1, n)
+        toks = tok_d[:n].cpu().numpy()
+        gaps = gap_d[:n].cpu().numpy()
+        plens = lens[:n]
+        for slot, plen in zip(slots, plens):
+            self.pos[slot] = plen
+            self.active[slot] = True
+        self._join_rows(slots, plens, toks, gaps)
+        self.stats.prefill_calls += 1
+        self.stats.prefill_prompts += n
+        self.stats.prefill_shapes.add((bb, lb))
+        self.stats.bytes_to_device += arr.nbytes + lens.nbytes
+        self.stats.bytes_to_host += n * 8          # (tok, gap) per joiner
+        return slots, toks, gaps
+
+    # ----------------------------------------------------------- leaves
+
+    def release(self, slot: int) -> None:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self.active[slot] = False
+        self.pos[slot] = 0
+        self.free.append(slot)
+        self._active_dirty = True
+
+    # ------------------------------------------------------ decode steps
+
+    def decode(self, tokens_by_slot: Dict[int, int]
+               ) -> Dict[int, Tuple[int, float]]:
+        """One ragged decode step over the resident batch (reference path).
+
+        tokens_by_slot: {slot: next input token} for every ACTIVE slot.
+        Idle slots ride along at position 0 with a zero token. Returns
+        {slot: (greedy token, top-2 gap)}, reduced on the device, and
+        advances each active slot's depth."""
+        if set(tokens_by_slot) != set(np.flatnonzero(self.active)):
+            raise ValueError("decode needs exactly the active slots")
+        slots = np.fromiter(tokens_by_slot.keys(), np.int64,
+                            len(tokens_by_slot))
+        vals = np.fromiter(tokens_by_slot.values(), np.int64, len(slots))
+        if (self.pos[slots] >= self.max_len).any():
+            full = int(slots[np.argmax(self.pos[slots] >= self.max_len)])
+            raise ValueError(f"slot {full} is full ({self.max_len} tokens)")
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        toks[slots, 0] = vals
+        logits, self.cache = model_lib.decode_step(
+            self.params, self.cfg, toks, self.cache,
+            torch.as_tensor(self.pos, device=self.device))
+        tok_d, gap_d = argmax_gap(logits)
+        toks_h, gaps_h = tok_d.cpu().numpy(), gap_d.cpu().numpy()
+        self.pos[slots] += 1
+        self.stats.decode_calls += 1
+        self.stats.decode_steps += 1
+        self.stats.bytes_to_device += self.n_slots * 8   # tokens + pos
+        self.stats.bytes_to_host += self.n_slots * 8     # tok + gap
+        return {int(s): (int(toks_h[s]), float(gaps_h[s])) for s in slots}
+
+    def decode_fused(self, k: int = 1, mode: str = "ewma",
+                     beta: float = 0.35
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``k`` fused decode steps over the resident batch (device loop).
+
+        Returns (token trace (k, B) i32, gap trace (k, B) f32, certainty
+        trace (k, B) f32); input tokens, positions and the certainty fold
+        stay on the device between calls. Advances every active slot's
+        depth by ``k``."""
+        if self.n_active == 0:
+            raise RuntimeError(f"{self.name}: no active slots to decode")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if int(self.pos[self.active].max()) + k > self.max_len:
+            raise ValueError(
+                f"{self.name}: a {k}-step scan overruns a "
+                f"{self.max_len}-token slot")
+        if self._active_dirty:
+            self.dev_active = torch.as_tensor(self.active,
+                                              device=self.device)
+            self._active_dirty = False
+        (tt, gt, ct, self.dev_tok, self.cache, self.dev_pos,
+         self._fold) = model_lib.decode_fused_steps(
+            self.params, self.cfg, self.dev_tok, self.cache, self.dev_pos,
+            self.dev_active, self._fold, k=k, beta=beta, mode=mode)
+        self.pos[self.active] += k
+        self.stats.decode_calls += 1
+        self.stats.decode_steps += k
+        self.stats.bytes_to_host += k * self.n_slots * 12  # tok+gap+cert
+        return tt.cpu().numpy(), gt.cpu().numpy(), ct.cpu().numpy()
+
+
+@dataclass
+class TokenRequest:
+    rid: int
+    prompt: np.ndarray            # (L,) int32
+    max_new: int
+
+
+@dataclass
+class TokenResult:
+    rid: int
+    tokens: List[int] = field(default_factory=list)
+    gaps: List[float] = field(default_factory=list)
+    resolver: int = -1            # cascade stage that resolved the request
+    hops: int = 0                 # mid-stream / end-of-stream escalations
+    first_token_step: int = -1    # logical step of the first decode output
+    done_step: int = -1
+    # per-visited-stage gap stream (the tokens the request REALLY consumed
+    # there — speculative tokens never enter); keyed by stage index
+    stage_gaps: Dict[int, List[float]] = field(default_factory=dict)
+
+
+@dataclass
+class _Active:
+    req: TokenRequest
+    slot: int
+    next_token: int               # greedy argmax fed to the next step
+    cert: StreamingCertainty
+    res: TokenResult
+
+
+class TokenEngine:
+    """Continuous-batching cascade over per-model ``SlotEngine`` pools.
+
+    Decisions (admission, escalation, resolution) are delegated to the
+    ``ContinuousBatcher``/``SchedulerCore`` copies shared with the JAX
+    engine; this class owns only the real-model execution state. ``serve``
+    runs the request set to completion in deterministic logical steps: one
+    step = (admit + prefill joiners) then one decode phase per stage.
+    ``spec_k`` > 1 runs up to K decode steps per call whenever no request
+    waits at ANY stage and no resident row is near a decision boundary;
+    every decision is re-derived from the returned gap trace at the same
+    token counts as a K=1 run.
+    """
+
+    def __init__(self, stages: Sequence[SlotEngine], gear: Gear,
+                 cfg: SchedulerConfig = SchedulerConfig(),
+                 min_tokens: int = 4, early_margin: float = 0.5,
+                 stream_mode: str = "ewma", beta: float = 0.35,
+                 mode: str = "fused", spec_k: int = 1,
+                 k_guard_slack: float = 1.5):
+        if not stages:
+            raise ValueError("TokenEngine needs at least one SlotEngine")
+        if tuple(e.name for e in stages) != tuple(gear.cascade.models):
+            raise ValueError(
+                f"stage engines {[e.name for e in stages]} do not match "
+                f"the gear cascade {list(gear.cascade.models)}")
+        if mode not in ("fused", "reference"):
+            raise ValueError(f"mode must be fused|reference, got {mode!r}")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if mode == "reference" and spec_k != 1:
+            raise ValueError("speculative scans need mode='fused'")
+        self.stages = list(stages)
+        self.gear = gear
+        self.core = SchedulerCore([], cfg)
+        self.batchers = [
+            ContinuousBatcher(self.core, e.n_slots, min_tokens=min_tokens,
+                              early_margin=early_margin) for e in stages]
+        self.stream_mode = stream_mode
+        self.beta = beta
+        self.mode = mode
+        self.spec_k = spec_k
+        self.k_guard_slack = k_guard_slack
+        self.spec_discarded = 0       # speculative tokens thrown away
+
+    # ------------------------------------------------------------- serve
+
+    def serve(self, requests: Sequence[TokenRequest]
+              ) -> Dict[int, TokenResult]:
+        """Run all requests through the cascade; returns {rid: result}."""
+        waiting: List[Deque[Tuple[TokenRequest, TokenResult]]] = [
+            deque() for _ in self.stages]
+        act: List[List[_Active]] = [[] for _ in self.stages]
+        results: Dict[int, TokenResult] = {}
+        for r in requests:
+            res = TokenResult(rid=r.rid)
+            results[r.rid] = res
+            waiting[0].append((r, res))
+
+        step = 0
+        while any(waiting) or any(act):
+            for si, eng in enumerate(self.stages):
+                # admission at the token boundary: prefill phase first
+                self._admit(si, eng, waiting, act, step)
+                if not act[si]:
+                    continue
+                if self.mode == "reference":
+                    self._step_reference(si, eng, waiting, act, step)
+                else:
+                    self._step_fused(si, eng, waiting, act, step)
+            step += 1
+        return results
+
+    # ------------------------------------------------------ admit phase
+
+    def _admit(self, si: int, eng: SlotEngine, waiting, act, step: int
+               ) -> None:
+        k = self.batchers[si].admit(eng.n_active, len(waiting[si]))
+        if not k:
+            return
+        pairs = [waiting[si].popleft() for _ in range(k)]
+        if self.mode == "reference":
+            joined = []
+            for req, res in pairs:
+                slot, tok, gap = eng.prefill_into_slot(req.prompt)
+                joined.append((req, res, slot, tok, gap))
+        else:
+            slots, toks, gaps = eng.prefill_batch(
+                [req.prompt for req, _ in pairs])
+            joined = [(req, res, slot, int(tok), float(gap))
+                      for (req, res), slot, tok, gap
+                      in zip(pairs, slots, toks, gaps)]
+        for req, res, slot, tok, gap in joined:
+            cert = StreamingCertainty(mode=self.stream_mode, beta=self.beta)
+            cert.update(gap)
+            res.tokens.append(tok)
+            res.gaps.append(gap)
+            if res.first_token_step < 0:
+                res.first_token_step = step
+            act[si].append(_Active(req, slot, tok, cert, res))
+
+    # ----------------------------------------------------- decode phase
+
+    def _leave(self, si: int, eng: SlotEngine, a: _Active, hop, waiting,
+               act, step: int) -> None:
+        eng.release(a.slot)
+        act[si].remove(a)
+        a.res.stage_gaps[si] = list(a.res.gaps)
+        if getattr(hop, "next_stage", None) is not None:
+            # escalate: the prompt (never the cache) goes to the next model
+            a.res.hops += 1
+            a.res.tokens.clear()
+            a.res.gaps.clear()
+            # TTFT re-stamps at the resolving stage: the stream restarts
+            a.res.first_token_step = -1
+            waiting[hop.next_stage].append((a.req, a.res))
+        else:
+            a.res.resolver = si
+            a.res.done_step = step
+
+    def _step_reference(self, si: int, eng: SlotEngine, waiting, act,
+                        step: int) -> None:
+        """One decode call and one host round-trip of (B,) tokens and gaps
+        per step."""
+        out = eng.decode({a.slot: a.next_token for a in act[si]})
+        for a in act[si]:
+            a.next_token, gap = out[a.slot]
+            a.cert.update(gap)
+            a.res.tokens.append(a.next_token)
+            a.res.gaps.append(gap)
+        # token-boundary decisions (iterate over a copy: leaves mutate
+        # the active list)
+        for a in list(act[si]):
+            hop = self.batchers[si].boundary_hop(
+                si, a.cert.value, len(a.res.tokens), a.req.max_new,
+                self.gear)
+            if hop is not None:
+                self._leave(si, eng, a, hop, waiting, act, step)
+
+    def _choose_k(self, si: int, eng: SlotEngine, waiting, act) -> int:
+        """The K-collapse rule: K > 1 only when nothing waits at any stage
+        and no resident row is near a decision boundary; K is capped so no
+        row crosses its generation end or its slot capacity."""
+        if self.spec_k <= 1:
+            return 1
+        if any(len(w) for w in waiting):
+            return 1
+        k = self.spec_k
+        for a in act[si]:
+            k = min(k, a.req.max_new - len(a.res.tokens),
+                    eng.max_len - int(eng.pos[a.slot]))
+            if k <= 1:
+                return 1
+        for a in act[si]:
+            if self.batchers[si].near_boundary(
+                    si, a.cert.value, len(a.res.tokens), a.req.max_new,
+                    self.gear, self.k_guard_slack):
+                return 1
+        return k
+
+    def _step_fused(self, si: int, eng: SlotEngine, waiting, act,
+                    step: int) -> None:
+        """One device call covers K decode steps; the host sees (K, B)
+        token/gap traces and replays boundary decisions over them at the
+        same token counts."""
+        k = self._choose_k(si, eng, waiting, act)
+        tok_t, gap_t, _cert_t = eng.decode_fused(
+            k, mode=self.stream_mode, beta=self.beta)
+        leaves: List[Tuple[int, int, _Active, object]] = []
+        for order, a in enumerate(act[si]):
+            start = len(a.res.tokens)
+            used, hop = self.batchers[si].stream_trace_hop(
+                si, a.cert, gap_t[:, a.slot], start, a.req.max_new,
+                self.gear)
+            for j in range(used):
+                a.res.tokens.append(int(tok_t[j, a.slot]))
+                a.res.gaps.append(float(gap_t[j, a.slot]))
+            a.next_token = int(tok_t[used - 1, a.slot])
+            if hop is not None:
+                leaves.append((used, order, a, hop))
+                self.spec_discarded += k - used
+        # apply leaves in (token count, row) order — the order a
+        # single-step loop would have produced them in
+        leaves.sort(key=lambda e: (e[0], e[1]))
+        for _, _, a, hop in leaves:
+            self._leave(si, eng, a, hop, waiting, act, step)
+
+    # ------------------------------------------------------------- stats
+
+    def stats(self) -> Dict[str, object]:
+        """Aggregated hot-loop instrumentation across all stages."""
+        agg = {"prefill_calls": 0, "prefill_prompts": 0, "decode_calls": 0,
+               "decode_steps": 0, "bytes_to_host": 0, "bytes_to_device": 0}
+        for eng in self.stages:
+            for key in agg:
+                agg[key] += getattr(eng.stats, key)
+        agg["spec_discarded"] = self.spec_discarded
+        agg["prefill_shapes"] = {e.name: sorted(e.stats.prefill_shapes)
+                                 for e in self.stages}
+        return agg

@@ -1,0 +1,225 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where no CUDA device is
+available; the file imports torch only (no jax), so it runs on the GPU
+machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
+
+Tolerances: top2gap bit-exact (the same two f32 values subtracted, ties
+included); attention within 1e-5 in f32 and 2e-2 in bf16 against the f32
+plain version on the same inputs (bf16 output rounding; the kernels use
+the fast exp); the smoke-size model within 1e-4 of its CPU run in f32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.cascade import Cascade
+from repro_torch.core.certainty import device_fold_init
+from repro_torch.core.gears import Gear
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.top2gap import top2gap
+from repro_torch.models import model as TM
+from repro_torch.serving import token_engine as TT
+
+pytestmark = pytest.mark.cuda
+
+
+def _rand(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _to(tree, dev):
+    """The param tree (nested dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b,v", [(1, 151936), (8, 151936), (3, 4097),
+                                 (5, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top2gap_kernel_matches_plain(cuda, b, v, dtype):
+    x = torch.from_numpy(_rand(v, (b, v), 3.0)).to(cuda, dtype)
+    top = x[0].max() + 1.0
+    x[0, v - 1] = top                            # planted exact tie ...
+    x[0, min(7, v - 2)] = top                    # ... lower index wins
+    before = top2gap.launches
+    gap, idx = top2gap(x)
+    torch.cuda.synchronize()
+    assert top2gap.launches == before + 1
+    rgap, ridx = tref.top2gap_ref(x)
+    assert torch.equal(idx, ridx) and torch.equal(gap, rgap)
+    assert int(idx[0]) == min(7, v - 2) and float(gap[0]) == 0.0
+
+
+def test_top2gap_kernel_strided_rows(cuda):
+    """Rows of a wider buffer (row stride != V) and an unaligned start
+    take the scalar path and still agree."""
+    buf = torch.from_numpy(_rand(3, (4, 1001))).to(cuda)
+    for x in (buf[:, :999], buf[:, 1:]):
+        gap, idx = top2gap(x)
+        rgap, ridx = tref.top2gap_ref(x)
+        assert torch.equal(idx, ridx) and torch.equal(gap, rgap)
+
+
+# the last case is f32 activations over the engine's bf16 slot pool: the
+# kernel computes in f32 on the bf16 cache, as the plain version does
+@pytest.mark.parametrize("dtype,kv_dtype,atol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("h,kv,d", [(14, 2, 64), (4, 2, 32), (16, 2, 32),
+                                    (8, 8, 64)])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, kv_dtype, atol,
+                                               h, kv, d):
+    b, c = 8, 512
+    q = torch.from_numpy(_rand(1, (b, h, d))).to(cuda, dtype)
+    pool = torch.from_numpy(_rand(2, (3, b, c, kv, d))).to(cuda, kv_dtype)
+    vpool = torch.from_numpy(_rand(3, (3, b, c, kv, d))).to(cuda, kv_dtype)
+    vl = torch.tensor([1, 2, 33, 256, 511, 512, 100, 64], dtype=torch.int32,
+                      device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, pool[1], vpool[1], vl)   # strided layer view
+    assert decode_attention.launches == before + 1 and out.dtype == dtype
+    ref = tref.decode_attention_ref(q.float(), pool[1].float(),
+                                    vpool[1].float(), vl)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 4, 64, device=cuda)
+    k = torch.zeros(2, 16, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention(q.bfloat16(), k, k, 3)
+    with pytest.raises(ValueError):
+        decode_attention(q[..., :48], k[..., :48], k[..., :48], 3)
+    with pytest.raises(ValueError):
+        decode_attention(q, k.transpose(1, 2), k.transpose(1, 2), 3)
+    wide = torch.zeros(2, 16, 2, 128, device=cuda)          # hd 128
+    with pytest.raises(ValueError):
+        decode_attention(torch.zeros(2, 4, 128, device=cuda), wide, wide, 3)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,causal,window", [(64, True, 0), (256, True, 0),
+                                             (77, True, 0), (130, True, 48),
+                                             (90, False, 0), (1, True, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, atol, s, causal,
+                                              window):
+    b, h, kv, d = 8, 14, 2, 64
+    q = torch.from_numpy(_rand(1, (b, s, h, d))).to(cuda, dtype)
+    k = torch.from_numpy(_rand(2, (b, s, kv, d))).to(cuda, dtype)
+    v = torch.from_numpy(_rand(3, (b, s, kv, d))).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    ref = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_attention_kernel_head_dims(cuda, d):
+    q = torch.from_numpy(_rand(1, (2, 70, 4, d))).to(cuda)
+    k = torch.from_numpy(_rand(2, (2, 70, 2, d))).to(cuda)
+    v = torch.from_numpy(_rand(3, (2, 70, 2, d))).to(cuda)
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               tref.flash_attention_ref(q, k, v),
+                               atol=1e-5, rtol=0)
+
+
+def test_flash_attention_kernel_right_padding_bit_identical(cuda):
+    """Masked pad keys add exact zeros, so real rows of a right-padded
+    bucket are bit-identical to the unpadded call on the card."""
+    b, h, kv, d, s = 4, 14, 2, 64, 75
+    q, k, v = (torch.from_numpy(_rand(i, (b, 128, n, d))).to(
+        cuda, torch.bfloat16) for i, n in ((1, h), (2, kv), (3, kv)))
+    full = flash_attention(q[:, :s].contiguous(), k[:, :s].contiguous(),
+                           v[:, :s].contiguous())
+    padded = flash_attention(q, k, v)
+    assert torch.equal(padded[:, :s], full)
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """Bucketed prefill + 3 fused decode steps at smoke size in f32: the
+    kernels in the model's layouts agree with the CPU plain path."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    p_cpu = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    rng = np.random.default_rng(0)
+    lens = np.asarray([5, 12, 9], np.int32)
+    arr = np.zeros((3, 16), np.int32)
+    for i, n in enumerate(lens):
+        arr[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        logits, cache = TM.prefill_bucketed(p, cfg, arr, lens, cache_len=32)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        res = TM.decode_fused_steps(
+            p, cfg, tok, cache, torch.as_tensor(lens, device=dev),
+            torch.tensor([True, True, False], device=dev),
+            device_fold_init(3, dev), k=3)
+        outs.append((logits.cpu(), res[0].cpu(), res[1].cpu()))
+    (l0, t0, g0), (l1, t1, g1) = outs
+    torch.testing.assert_close(l1, l0, atol=1e-4, rtol=1e-4)
+    assert torch.equal(t1, t0)
+    torch.testing.assert_close(g1, g0, atol=1e-4, rtol=0)
+
+
+def test_reference_mode_reduces_through_the_kernel(cuda):
+    """Reference mode and ``greedy_generate`` on the card take each
+    prefill's and each decode step's argmax and gap from the top2gap
+    kernel (one launch per batch-1 prefill and per decode call), and
+    serve what the CPU run serves in f32: tokens equal up to the first
+    near-tie (gap < 1e-4), gaps within 1e-4."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 5 + 4 * i).astype(np.int32)
+               for i in range(4)]
+    gear = Gear(cascade=Cascade(("a",), ()), min_queue_lens={"a": 1},
+                load_fractions={"a": {0: 1.0}})
+    p_cpu = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = _to(p_cpu, dev)
+        eng = TT.SlotEngine("a", params, cfg, n_slots=2, max_len=32,
+                            device=dev)
+        te = TT.TokenEngine([eng], gear, min_tokens=2, mode="reference")
+        before = top2gap.launches
+        out = te.serve([TT.TokenRequest(i, p, 6)
+                        for i, p in enumerate(prompts)])
+        st = te.stats()
+        launched = top2gap.launches - before
+        g_before = top2gap.launches
+        toks, gaps = TT.greedy_generate(params, cfg, prompts[0], 5)
+        g_launched = top2gap.launches - g_before
+        runs[str(dev)] = out, launched, st, (toks, gaps), g_launched
+    (c_out, c_n, _, c_greedy, c_gn) = runs["cpu"]
+    (g_out, g_n, g_st, g_greedy, g_gn) = runs[str(cuda)]
+    assert c_n == 0 and c_gn == 0
+    assert g_n == g_st["prefill_prompts"] + g_st["decode_calls"] > 0
+    assert g_gn == 5
+    pairs = [(c_out[r].tokens, g_out[r].tokens, c_out[r].gaps,
+              g_out[r].gaps) for r in c_out]
+    pairs.append((list(c_greedy[0]), list(g_greedy[0]), list(c_greedy[1]),
+                  list(g_greedy[1])))
+    for ct, gt, cg, gg in pairs:
+        assert len(ct) == len(gt)
+        for a, b, x, y in zip(ct, gt, cg, gg):
+            assert a == b and abs(x - y) <= 1e-4
+            if x < 1e-4:
+                break
