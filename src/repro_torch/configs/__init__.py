@@ -7,20 +7,23 @@ ids raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs.base import (EncDecConfig, FrontendStubConfig,
                                       HybridConfig, ModelConfig, MoEConfig,
                                       SSMConfig)
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _falconmamba
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
 
-_REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [_qwen2]}
+_REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [_falconmamba,
+                                                          _qwen2]}
 
 # arch ids the JAX package serves whose model path is not in the port yet
 _NOT_YET_PORTED = (
-    "llama4-maverick-400b-a17b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
-    "internvl2-1b", "olmo-1b", "qwen3-32b", "h2o-danube-1.8b",
-    "seamless-m4t-large-v2", "jamba-v0.1-52b",
+    "llama4-maverick-400b-a17b", "qwen2-moe-a2.7b", "internvl2-1b",
+    "olmo-1b", "qwen3-32b", "h2o-danube-1.8b", "seamless-m4t-large-v2",
+    "jamba-v0.1-52b",
 )
 
 ARCH_IDS: List[str] = list(_REGISTRY.keys())
@@ -49,6 +52,9 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     )
     if cfg.sliding_window:
         upd["sliding_window"] = 64
+    if cfg.ssm is not None:
+        upd["ssm"] = dataclasses.replace(cfg.ssm, d_state=8, d_conv=4,
+                                         expand=2)
     return cfg.scaled(**upd)
 
 

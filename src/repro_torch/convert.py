@@ -3,8 +3,11 @@
 Counterpart of the layouts built by ``repro/models/model.py:117-142``
 (``init_params``) and ``:554-585`` (``init_cache``): ``params["blocks"]``
 is a list with one entry per block-pattern position, each leaf stacked
-over repetitions on axis 0, and the KV cache is ``{"blocks": [{"k", "v"}]}``
-with leaves ``(reps, B, C, KV, hd)``. The caller hands over the pytree with
+over repetitions on axis 0, and the cache is ``{"blocks": [...]}`` with
+``{"k", "v"}`` leaves ``(reps, B, C, KV, hd)`` for attention and
+``{"conv", "ssm"}`` leaves for an SSM mixer. Every leaf keeps its dtype
+(the SSM's ``A_log``, ``D``, ``dt_proj_b`` and state stay float32 under
+bfloat16 weights). The caller hands over the pytree with
 numpy leaves (``jax.tree.map(np.asarray, tree)``), so this module never
 touches jax; bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays and
 are reinterpreted bit for bit.
@@ -48,7 +51,7 @@ def params_from_numpy(tree: Any, device="cpu",
     return _map(tree, lambda a: to_tensor(a, device, dtype))
 
 
-# the cache pytree ({"blocks": [{"k": (reps,B,C,KV,hd), "v": ...}]}) converts
+# the cache pytree ({"blocks": [{"k", "v"} or {"conv", "ssm"}]}) converts
 # leaf by leaf exactly like the params
 cache_from_numpy = params_from_numpy
 

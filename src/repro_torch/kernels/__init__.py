@@ -4,6 +4,7 @@ PyTorch versions (port of ``repro/kernels``).
 top2gap          — the paper's Eq. 5 certainty gap and the greedy argmax
 decode_attention — one-token GQA attention over the model's KV cache
 flash_attention  — causal / windowed prefill attention with GQA
+mamba_scan       — the Mamba-1 selective scan of an SSM prefill
 
 Each wrapper runs its plain version (``ref``) for a CPU tensor and its
 kernel for a CUDA tensor, and counts the kernel's launches in its
@@ -15,6 +16,7 @@ from typing import Dict
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import top2gap as _top2gap
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
@@ -24,6 +26,7 @@ WRAPPERS = {
     "top2gap": _top2gap.top2gap,
     "decode_attention": _decode.decode_attention,
     "flash_attention": _flash.flash_attention,
+    "mamba_scan": _mamba.mamba_scan,
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the serving path
+"""Plain PyTorch versions of the four kernels on the serving path
 (port of ``repro/kernels/ref.py`` and of the attention math in
 ``repro/models/attention.py:76-89``).
 
@@ -14,7 +14,10 @@ upcasts, in the model's layouts:
 * ``flash_attention_ref``  — causal (optionally windowed) or full
                              attention over ``(B, S, H, hd)`` queries and
                              ``(B, S, KV, hd)`` keys/values, GQA by head
-                             grouping (query head h reads KV head h // G).
+                             grouping (query head h reads KV head h // G);
+* ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
+                             time, from an optional initial state; returns
+                             the output and the last state.
 
 The CPU tests hold them against the JAX package; ``chip_smoke.py`` holds
 each kernel against them on the card. The wrappers call them only for
@@ -23,13 +26,14 @@ tensors that lie on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30
 
-__all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref"]
+__all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
+           "mamba_scan_ref"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,3 +96,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def mamba_scan_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective scan (``repro/kernels/ref.py:60-85``).
+
+    dt (B, S, Di) f32, a (Di, N) f32 (already ``-exp(A_log)``), b/c
+    (B, S, N) f32, d_vec (Di,), x (B, S, Di) any float dtype, h0 (B, Di, N)
+    f32 or None (zeros). Per step: ``h = exp(dt_t a) h + (dt_t x_t) B_t``,
+    ``y_t = h C_t``. Returns (y (B, S, Di) f32 with ``D x`` added,
+    h_last (B, Di, N) f32)."""
+    bsz, s, d_inner = x.shape
+    h = (torch.zeros(bsz, d_inner, a.shape[-1], dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    xf = x.float()
+    ys = []
+    for t in range(s):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[..., None] * a)
+        h = da * h + (dt_t * xf[:, t])[..., None] * b_mat[:, t, None, :]
+        ys.append(torch.einsum("bin,bn->bi", h, c_mat[:, t]))
+    return torch.stack(ys, dim=1) + xf * d_vec, h

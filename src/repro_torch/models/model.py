@@ -1,12 +1,14 @@
-"""Model assembly for attention-only decoders (port of
-``repro/models/model.py:52-142``, ``:312-330``, ``:365-547``,
-``:554-585``).
+"""Model assembly for attention and SSM (Mamba-1) decoders (port of
+``repro/models/model.py:52-142``, ``:174-193``, ``:312-330``,
+``:365-547``, ``:554-585``).
 
 The parameter dict keeps the JAX pytree's layout: ``blocks`` is a list with
 one entry per block-pattern position, every leaf stacked over repetitions
-on axis 0, and the KV cache is ``{"blocks": [{"k", "v"}]}`` with leaves
-``(reps, B, C, KV, hd)``. Where JAX scans over repetitions, the port runs a
-Python loop over reps that indexes the stacked tensors (views, no copies).
+on axis 0. The cache is ``{"blocks": [...]}`` with one dict per position:
+``{"k", "v"}`` with leaves ``(reps, B, C, KV, hd)`` for attention, and
+``{"conv" (reps, B, K-1, Di), "ssm" (reps, B, Di, N) f32}`` for an SSM
+mixer. Where JAX scans over repetitions, the port runs a Python loop over
+reps that indexes the stacked tensors (views, no copies).
 
 Entry points:
   init_params        — random params from a ``torch.Generator`` (scale 0.02)
@@ -18,7 +20,7 @@ Entry points:
   prefill_bucketed   — right-padded batched prefill
   init_cache         — zero cache
 
-Only the dense attention decoder is ported: SSM, MoE, encoder-decoder and
+Dense attention and SSM mixers are ported: MoE, encoder-decoder and
 modality-frontend configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import certainty as cert_lib
 from repro_torch.kernels.top2gap import argmax_gap
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as ssm
 from repro_torch.models.common import (Params, apply_ffn, apply_norm,
                                        embed_tokens, lm_logits)
 
@@ -89,9 +92,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   f"yet ported")
     for spec in block_pattern(cfg):
-        if spec.mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: SSM mixers are not yet "
-                                      f"ported")
         if spec.ffn == "moe":
             raise NotImplementedError(f"{cfg.name}: MoE FFNs are not yet "
                                       f"ported")
@@ -105,8 +105,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Union[str, torch.device] = "cuda") -> Params:
     """Random params with the JAX init's shapes, dtypes and scale (normal
-    * 0.02 weights, zero biases, unit norm scales in float32), drawn from
-    a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    * 0.02 weights, zero biases, unit norm scales in float32; the SSM's
+    ``dt_proj_b``, ``A_log`` and ``D`` in float32), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. A rep-stacked
+    weight is drawn one repetition at a time, so the float32 draw never
+    holds more than one layer's weight."""
     dev = resolve_device(device)
     _check_ported(cfg)
     gen = torch.Generator(device=dev)
@@ -115,8 +118,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def normal(*shape):
-        return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * 0.02).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in (out if len(shape) == 3 else (out,)):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
+                                   dtype=torch.float32).mul_(0.02))
+        return out
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float32) * (hi - lo) + lo
 
     def norm(*lead):
         p = {}
@@ -131,16 +141,26 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         embed["lm_head"] = normal(d, cfg.vocab_size)
     blocks = []
     for spec in block_pattern(cfg):
-        a = {"wq": normal(reps, d, h * hd), "wk": normal(reps, d, kv * hd),
-             "wv": normal(reps, d, kv * hd), "wo": normal(reps, h * hd, d)}
-        if cfg.qkv_bias:
-            a["bq"] = torch.zeros(reps, h * hd, dtype=dtype, device=dev)
-            a["bk"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
-            a["bv"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
-        if cfg.qk_norm:
-            a["q_norm_scale"] = torch.ones(reps, hd, device=dev)
-            a["k_norm_scale"] = torch.ones(reps, hd, device=dev)
-        blk = {"norm1": norm(reps), "attn": a}
+        blk = {"norm1": norm(reps)}
+        if spec.mixer == "ssm":
+            blk["mamba"] = ssm.make_mamba_params(
+                cfg, lambda shape: normal(reps, *shape),
+                lambda shape, lo, hi: uniform((reps,) + shape, lo, hi),
+                lambda shape, value, dt: torch.full(
+                    (reps,) + shape, value, dtype=dt, device=dev), dtype)
+        else:
+            a = {"wq": normal(reps, d, h * hd),
+                 "wk": normal(reps, d, kv * hd),
+                 "wv": normal(reps, d, kv * hd),
+                 "wo": normal(reps, h * hd, d)}
+            if cfg.qkv_bias:
+                a["bq"] = torch.zeros(reps, h * hd, dtype=dtype, device=dev)
+                a["bk"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
+                a["bv"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
+            if cfg.qk_norm:
+                a["q_norm_scale"] = torch.ones(reps, hd, device=dev)
+                a["k_norm_scale"] = torch.ones(reps, hd, device=dev)
+            blk["attn"] = a
         if spec.ffn == "dense":
             blk["norm2"] = norm(reps)
             blk["ffn"] = {"w_gate": normal(reps, d, cfg.d_ff),
@@ -178,7 +198,14 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
     new_cache = None
-    if mode == "full":
+    if spec.mixer == "ssm":
+        if mode == "full":
+            mix = ssm.mamba_forward(p["mamba"], cfg, h)
+        elif mode == "prefill":
+            mix, new_cache = ssm.mamba_prefill(p["mamba"], cfg, h)
+        else:
+            mix, new_cache = ssm.mamba_decode(p["mamba"], cfg, h, cache)
+    elif mode == "full":
         mix = attn.attention_forward(p["attn"], cfg, h, positions)
     elif mode == "prefill":
         mix, new_cache = attn.prefill_attention(p["attn"], cfg, h, positions,
@@ -199,11 +226,11 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 cache_len: int = 0
                 ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
     """Loop the block pattern over repetitions. ``caches`` (decode) is
-    updated in place; prefill returns freshly stacked caches."""
+    updated in place; prefill returns freshly stacked caches (every leaf a
+    block returns, stacked over repetitions)."""
     pattern = block_pattern(cfg)
     reps = num_reps(cfg)
-    filled: List[Dict[str, List[torch.Tensor]]] = [
-        {"k": [], "v": []} for _ in pattern]
+    filled: List[Dict[str, List[torch.Tensor]]] = [{} for _ in pattern]
     for r in range(reps):
         for pos, spec in enumerate(pattern):
             c_in = None
@@ -213,11 +240,10 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                                     positions, mode, c_in, cache_index,
                                     cache_len)
             if mode == "prefill":
-                for n in ("k", "v"):
-                    filled[pos][n].append(c_out[n])
+                for n, leaf in c_out.items():
+                    filled[pos].setdefault(n, []).append(leaf)
     if mode == "prefill":
-        return x, [{n: torch.stack(f[n]) for n in ("k", "v")}
-                   for f in filled]
+        return x, [{n: torch.stack(v) for n, v in f.items()} for f in filled]
     return x, caches
 
 
@@ -272,9 +298,19 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     """One-token decode. tokens (B, 1); cache from ``prefill``/
     ``init_cache``, UPDATED IN PLACE (the returned cache is the same
     object); cache_index = tokens already in context, scalar or (B,).
-    Returns (logits (B, V) f32, cache)."""
+    Returns (logits (B, V) f32, cache).
+
+    An SSM conv state held in a narrower dtype than the activations (the
+    engine's bf16 pool under f32 weights) is first widened, once, to the
+    promoted dtype: the JAX decode returns its conv state in that dtype,
+    so the JAX engine's pool is widened by its first decode call too."""
     dev = _device(params)
     x = embed_tokens(params["embed"], _tokens(tokens, dev))
+    for blk in cache["blocks"]:
+        if "conv" in blk:
+            wide = torch.promote_types(blk["conv"].dtype, x.dtype)
+            if blk["conv"].dtype != wide:
+                blk["conv"] = blk["conv"].to(wide)
     b = x.shape[0]
     ci = torch.broadcast_to(torch.as_tensor(cache_index, device=dev), (b,))
     x, _ = _run_blocks(params["blocks"], cfg, x, ci.reshape(b, 1), "decode",
@@ -379,13 +415,19 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Union[str, torch.device] = "cuda") -> Params:
-    """Zero decode cache: {"blocks": [{"k", "v": (reps, B, C, KV, hd)}]}."""
+    """Zero decode cache: {"blocks": [...]}, per block-pattern position
+    {"k", "v": (reps, B, C, KV, hd)} (attention) or {"conv": (reps, B,
+    K-1, Di), "ssm": (reps, B, Di, N) f32} (SSM)."""
     dev = resolve_device(device)
     _check_ported(cfg)
     reps = num_reps(cfg)
     shape = (reps, batch, attn.kv_cache_len(cfg, cache_len),
              cfg.num_kv_heads, cfg.head_dim)
-    return {"blocks": [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in block_pattern(cfg)]}
+    blocks = []
+    for spec in block_pattern(cfg):
+        if spec.mixer == "ssm":
+            blocks.append(ssm.make_mamba_cache(cfg, batch, reps, dtype, dev))
+        else:
+            blocks.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return {"blocks": blocks}

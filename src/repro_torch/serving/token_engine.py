@@ -22,7 +22,9 @@ Two execution modes, as in the JAX engine:
   ``spec_k`` > 1, K steps run per call when nothing waits and no row is
   near a decision boundary, and the host replays the boundary decisions
   over the (K, B) traces. Joiners prefill in ONE right-padded call per
-  boundary, padded to power-of-two (length, batch) buckets.
+  boundary, padded to power-of-two (length, batch) buckets, where padding
+  is exact; otherwise (SSM state, a sliding-window ring at or below the
+  length bucket) each joiner gets an exact-length batch-1 prefill.
 * ``reference`` — one decode call per step and per-joiner batch-1
   prefills; the host folds each step's gaps. Unlike the JAX engine, which
   ships the full (B, V) logits to the host, the argmax and top-2 gap run
@@ -156,11 +158,12 @@ class SlotEngine:
 
     def _scatter(self, rows: torch.Tensor, new_cache, n: int) -> None:
         """Write the first ``n`` batch rows of a prefill cache into the
-        pool lanes ``rows`` (batch axis 1), overwriting whole lanes so a
-        previous occupant's contents cannot leak."""
+        pool lanes ``rows`` (batch axis 1), every leaf (K/V, or the SSM's
+        conv and state), overwriting whole lanes so a previous occupant's
+        contents cannot leak."""
         for pool, new in zip(self.cache["blocks"], new_cache["blocks"]):
-            for name in ("k", "v"):
-                pool[name][:, rows] = new[name][:, :n].to(pool[name].dtype)
+            for name, leaf in pool.items():
+                leaf[:, rows] = new[name][:, :n].to(leaf.dtype)
 
     # ------------------------------------------------------------- joins
 
@@ -231,9 +234,10 @@ class SlotEngine:
         right-padded call, prompts padded to the smallest power-of-two
         length bucket covering the longest joiner and the batch to a batch
         bucket; the argmax/top-2-gap reduction runs on the device. Where
-        padding is not exact (a sliding-window ring shorter than the
-        bucket) ``prefill_bucketed`` raises: the exact-length prefill path
-        for such configs is not yet ported.
+        padding is not exact (SSM state, MoE routing, or a sliding-window
+        ring at or below the length bucket) each prompt gets an
+        exact-length batch-1 prefill (``prefill_into_slot``), as in the
+        JAX engine.
 
         Returns (slots, first tokens (n,), first gaps (n,))."""
         prompts = [self._check_prompt(p) for p in prompts]
@@ -244,6 +248,16 @@ class SlotEngine:
             raise RuntimeError(
                 f"{self.name}: {n} joiners for {len(self.free)} free slots")
         lb = self._len_bucket(max(p.size for p in prompts))
+        if not model_lib.bucketed_prefill_supported(self.cfg) or (
+                self.cfg.sliding_window > 0
+                and lb >= min(self.cfg.sliding_window, self.max_len)):
+            joined = [self.prefill_into_slot(p) for p in prompts]
+            slots = [j[0] for j in joined]
+            toks = np.asarray([j[1] for j in joined], np.int32)
+            gaps = np.asarray([j[2] for j in joined], np.float32)
+            self._join_rows(slots, np.asarray([p.size for p in prompts]),
+                            toks, gaps)
+            return slots, toks, gaps
         bb = self._batch_bucket(n)
         arr = np.zeros((bb, lb), np.int32)
         lens = np.ones((bb,), np.int32)

@@ -7,7 +7,9 @@ machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
 Tolerances: top2gap bit-exact (the same two f32 values subtracted, ties
 included); attention within 1e-5 in f32 and 2e-2 in bf16 against the f32
 plain version on the same inputs (bf16 output rounding; the kernels use
-the fast exp); the smoke-size model within 1e-4 of its CPU run in f32.
+the fast exp); the selective scan within 2e-4 of its plain version (f32
+throughout, other summation order over N; the JAX sweep's limit); the
+smoke-size models within 1e-4 of their CPU runs in f32.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.core.gears import Gear
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.top2gap import top2gap
 from repro_torch.models import model as TM
 from repro_torch.serving import token_engine as TT
@@ -223,3 +226,115 @@ def test_reference_mode_reduces_through_the_kernel(cuda):
             assert a == b and abs(x - y) <= 1e-4
             if x < 1e-4:
                 break
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("b,s,di", [(1, 200, 512), (2, 33, 70), (1, 1, 64),
+                                    (2, 130, 256)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
+                                         with_h0):
+    """y and h_last against the plain scan on the same card inputs: S
+    below, across and not a multiple of the kernel's 64-step runs, Di not
+    a multiple of a block's channels, x in f32 and bf16, a zero and a
+    nonzero initial state."""
+    f = lambda seed, shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        _rand(seed, shape, scale)).to(cuda)
+    dt = torch.nn.functional.softplus(f(1, (b, s, di), 0.5) - 3.0)
+    a = -torch.exp(f(2, (di, n), 0.5))
+    bm, cm = f(3, (b, s, n)), f(4, (b, s, n))
+    d = f(5, (di,))
+    x = f(6, (b, s, di)).to(x_dtype)
+    h0 = f(7, (b, di, n)) if with_h0 else None
+    before = mamba_scan.launches
+    y, h = mamba_scan(dt, a, bm, cm, d, x, h0)
+    assert mamba_scan.launches == before + 1
+    ry, rh = tref.mamba_scan_ref(dt, a, bm, cm, d, x, h0)
+    torch.testing.assert_close(y, ry, atol=2e-4, rtol=0)
+    torch.testing.assert_close(h, rh, atol=2e-4, rtol=0)
+
+
+def test_mamba_scan_kernel_reads_strided_b_c(cuda):
+    """B and C as column slices of one wider projection (the model's f32
+    path hands them over without a copy)."""
+    b, s, di, n, r = 2, 70, 128, 16, 8
+    dbc = torch.from_numpy(_rand(1, (b, s, r + 2 * n))).to(cuda)
+    dt = torch.from_numpy(np.abs(_rand(2, (b, s, di))) * 0.1).to(cuda)
+    a = -torch.from_numpy(np.abs(_rand(3, (di, n)))).to(cuda)
+    d = torch.from_numpy(_rand(4, (di,))).to(cuda)
+    x = torch.from_numpy(_rand(5, (b, s, di))).to(cuda)
+    bm, cm = dbc[..., r:r + n], dbc[..., r + n:]
+    y, h = mamba_scan(dt, a, bm, cm, d, x)
+    ry, rh = tref.mamba_scan_ref(dt, a, bm, cm, d, x)
+    torch.testing.assert_close(y, ry, atol=2e-4, rtol=0)
+    torch.testing.assert_close(h, rh, atol=2e-4, rtol=0)
+
+
+def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
+    b, s, di = 1, 8, 32
+
+    def ins(n=16, dt_dtype=torch.float32, x_dtype=torch.float32):
+        return (torch.zeros(b, s, di, device=cuda, dtype=dt_dtype),
+                torch.zeros(di, n, device=cuda),
+                torch.zeros(b, s, n, device=cuda),
+                torch.zeros(b, s, n, device=cuda),
+                torch.zeros(di, device=cuda),
+                torch.zeros(b, s, di, device=cuda, dtype=x_dtype))
+    before = mamba_scan.launches
+    with pytest.raises(ValueError):
+        mamba_scan(*ins(n=32))                       # d_state 32
+    with pytest.raises(TypeError):
+        mamba_scan(*ins(dt_dtype=torch.bfloat16))    # dt must be f32
+    with pytest.raises(TypeError):
+        mamba_scan(*ins(x_dtype=torch.float16))      # x f32 or bf16
+    t = ins()
+    with pytest.raises(ValueError):                  # x's Di axis strided
+        mamba_scan(*t[:5], torch.zeros(b, s, 2 * di, device=cuda)[..., ::2])
+    with pytest.raises(ValueError):
+        mamba_scan(*t, torch.zeros(b, di, 8, device=cuda))   # h0 shape
+    assert mamba_scan.launches == before
+
+
+def test_ssm_smoke_model_on_card_matches_cpu(cuda):
+    """falcon-mamba-7b at smoke size in f32: prefill (the scan kernel in
+    every layer) and 3 decode steps agree with the CPU plain path, and a
+    fused two-request engine run launches the scan once per layer per
+    prefill and no attention kernel."""
+    cfg = get_smoke_config("falcon-mamba-7b")
+    p_cpu = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21)) \
+        .astype(np.int32)
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        before = mamba_scan.launches
+        logits, cache = TM.prefill(p, cfg, {"tokens": prompt}, cache_len=32)
+        if dev == cuda:
+            assert mamba_scan.launches == before + cfg.num_layers
+        steps = [logits]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        for k in range(3):
+            logits, cache = TM.decode_step(p, cfg, tok[:, None], cache,
+                                           torch.full((2,), 21 + k,
+                                                      device=dev))
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps.append(logits)
+        outs.append(torch.stack(steps).cpu())
+    torch.testing.assert_close(outs[1], outs[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(outs[1].argmax(-1), outs[0].argmax(-1))
+    eng = TT.SlotEngine("a", p_gpu, cfg, n_slots=2, max_len=32, device=cuda)
+    gear = Gear(cascade=Cascade(("a",), ()), min_queue_lens={"a": 1},
+                load_fractions={"a": {0: 1.0}})
+    te = TT.TokenEngine([eng], gear, min_tokens=2, spec_k=4)
+    counts = {n: f.launches for n, f in (("scan", mamba_scan),
+                                         ("decode", decode_attention),
+                                         ("flash", flash_attention))}
+    out = te.serve([TT.TokenRequest(i, prompt[i], 5) for i in range(2)])
+    st = te.stats()
+    assert all(len(r.tokens) == 5 for r in out.values())
+    assert mamba_scan.launches - counts["scan"] == \
+        cfg.num_layers * st["prefill_calls"] == cfg.num_layers * 2
+    assert decode_attention.launches == counts["decode"]
+    assert flash_attention.launches == counts["flash"]
+    assert all(b == 1 for b, _ in eng.stats.prefill_shapes)

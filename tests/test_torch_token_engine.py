@@ -193,3 +193,30 @@ def test_slot_engine_and_token_engine_validation(setup):
     with pytest.raises(ValueError):
         TT.SlotEngine("m", params["a"][1], tcfg, n_slots=1, max_len=16,
                       device="meta")
+
+
+@pytest.mark.parametrize("spec_k", [1, 4])
+def test_sliding_window_exact_length_fallback_matches_jax(spec_k):
+    """A sliding-window ring (16 slots) at or below the length bucket makes
+    right padding inexact: those joiners prefill one by one at their exact
+    length, as in the JAX engine, while a boundary whose bucket is below
+    the ring stays one padded call. Decisions equal the JAX engine's."""
+    over = dict(sliding_window=16, norm_type="nonparametric_ln")
+    jcfg = jax_smoke_config("qwen2-0.5b").scaled(**over)
+    tcfg = get_smoke_config("qwen2-0.5b").scaled(**over)
+    tree = jax.tree.map(np.asarray, JM.init_params(
+        jcfg, jax.random.PRNGKey(3), dtype=jnp.float32))
+    params = {"a": (jax.tree.map(jnp.asarray, tree),
+                    params_from_numpy(tree))}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
+               for n in (4, 5, 7, 14, 20)]
+    jout, jte = _serve(JT, jcfg, params, prompts, ["a"], [], "fused",
+                       spec_k)
+    tout, tte = _serve(TT, tcfg, params, prompts, ["a"], [], "fused",
+                       spec_k)
+    _assert_same(jout, tout)
+    shapes = tte.stages[0].stats.prefill_shapes
+    assert shapes == jte.stages[0].stats.prefill_shapes
+    assert (3, 8) in shapes                     # padded: bucket 8 < ring
+    assert {(1, 14), (1, 20)} <= shapes         # exact: bucket >= ring
