@@ -9,7 +9,9 @@ non-zero exit code and no ``ok`` line:
 1. device  — asserts CUDA; prints the card's name and power limit as
              ``nvidia-smi --query-gpu=name,power.limit`` reports them.
 2. build   — compiles every kernel (``src/repro_torch/kernels/csrc/*.cu``)
-             with nvcc for sm_90a, one process per source, in parallel.
+             with nvcc for sm_90a, one process per source, in parallel,
+             and prints ptxas's registers, spills and shared memory for
+             each kernel entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving paths' shapes (top2gap bit-exact with
              planted ties; bf16 attention within 2e-2 of the f32 plain
@@ -17,7 +19,9 @@ non-zero exit code and no ``ok`` line:
              times kernel, plain version and the PyTorch library call that
              computes the same function where one exists (a yardstick the
              port never calls), with CUDA events, against the least time
-             the card needs for the same bytes and operations.
+             the card needs for the same bytes and operations (the
+             attention rows print both counts; flash is timed at S 256
+             and at S 64, the most common prefill bucket).
 4. serve   — the main path: a two-stage cascade of full-width qwen2-0.5b
              models (random bf16 weights from seeds 0 and 1) served by the
              fused ``TokenEngine`` (8 KV slots of 512 tokens, spec_k 4):
@@ -53,6 +57,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -170,12 +175,47 @@ def phase_device() -> str:
     return smi[0]
 
 
+def _ptxas_report(log: str) -> list:
+    """Registers, spill bytes and static shared memory of each kernel
+    entry in one library's ``nvcc -Xptxas -v`` output."""
+    rows, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = {"kernel": m.group(1)}
+            rows.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem"] = int(m.group(1)) if m else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n
+    except (OSError, subprocess.SubprocessError):
+        pass   # keep the mangled names
+    return rows
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = build.build_all()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_flags": " ".join(build.NVCC_FLAGS),
           "libraries": sorted(p.name for p in libs.values())})
+    for stem, path in sorted(libs.items()):
+        emit({"phase": "ptxas", "source": f"csrc/{stem}.cu",
+              "kernels": _ptxas_report(path.with_suffix(".log").read_text())})
 
 
 # ---------------------------------------------------------------------------
@@ -263,20 +303,24 @@ def kernel_decode(dev) -> dict:
     lms = device_ms([lambda s=s: F.scaled_dot_product_attention(
         s[0][:, :, None], s[1].transpose(1, 2), s[2].transpose(1, 2),
         attn_mask=mask, enable_gqa=True) for s in sets])
-    bms, by = bound(nbytes, 4 * h * d * n_valid, BF16_FLOP_PER_S)
+    flops = 4 * h * d * n_valid
+    bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     return dict(name="decode_attention", max_abs_err=err,
                 shape=f"B={b} H={h} KV={kv} hd={d} C={c} bf16 "
                       f"valid_len={vl.tolist()}",
                 ms=kms, plain_ms=pms, library_ms=lms,
                 library="F.scaled_dot_product_attention(enable_gqa)",
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                bound_flops=flops)
 
 
 def kernel_flash(dev) -> dict:
+    """Causal bf16 at B 8, H 14, KV 2, hd 64: the row's shape is S 256;
+    S 64, the most common prefill bucket, is timed beside it."""
     b, h, kv, d = N_SLOTS, 14, 2, 64
     g = _gen(11)
     worst = 0.0
-    timed = None
+    timed = {}
     for s in (64, 256):
         def make(s=s):
             return (torch.randn(b, s, h, d, generator=g, device=dev)
@@ -300,25 +344,26 @@ def kernel_flash(dev) -> dict:
         check(torch.equal(part, out[:, :n]),
               f"flash_attention right padding invisible (S={s}, n={n})")
         worst = max(worst, err)
-        if s == 256:
-            nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
-            sets = [make() for _ in range(copies(nbytes))]
-            kms = device_ms([lambda t=t: flash_attention(*t) for t in sets])
-            pms = device_ms([lambda t=t: ref.flash_attention_ref(*t)
-                             for t in sets])
-            lms = device_ms([lambda t=t: F.scaled_dot_product_attention(
-                t[0].transpose(1, 2), t[1].transpose(1, 2),
-                t[2].transpose(1, 2), is_causal=True, enable_gqa=True)
-                for t in sets])
-            pairs = b * h * s * (s + 1) // 2
-            bms, by = bound(nbytes, 4 * d * pairs, BF16_FLOP_PER_S)
-            timed = dict(shape=f"B={b} S={s} H={h} KV={kv} hd={d} causal "
-                               f"bf16", ms=kms, plain_ms=pms,
-                         library_ms=lms,
-                         library="F.scaled_dot_product_attention(causal, "
-                                 "enable_gqa)",
-                         bound_ms=bms, bound_by=by)
-    return dict(name="flash_attention", max_abs_err=worst, **timed)
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
+        sets = [make() for _ in range(copies(nbytes))]
+        kms = device_ms([lambda t=t: flash_attention(*t) for t in sets])
+        pms = device_ms([lambda t=t: ref.flash_attention_ref(*t)
+                         for t in sets])
+        lms = device_ms([lambda t=t: F.scaled_dot_product_attention(
+            t[0].transpose(1, 2), t[1].transpose(1, 2),
+            t[2].transpose(1, 2), is_causal=True, enable_gqa=True)
+            for t in sets])
+        flops = 4 * d * b * h * s * (s + 1) // 2
+        bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        timed[s] = dict(shape=f"B={b} S={s} H={h} KV={kv} hd={d} causal "
+                              f"bf16", ms=kms, plain_ms=pms,
+                        library_ms=lms,
+                        library="F.scaled_dot_product_attention(causal, "
+                                "enable_gqa)",
+                        bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                        bound_flops=flops)
+    return dict(name="flash_attention", max_abs_err=worst, **timed[256],
+                at_s64=timed[64])
 
 
 def kernel_mamba(dev) -> dict:
@@ -809,7 +854,9 @@ def main() -> int:
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     **{key: t[key] for key in ("bound_bytes", "bound_flops")
+                        if key in t}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

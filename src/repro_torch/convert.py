@@ -19,12 +19,17 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 __all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy", "to_numpy"]
 
 
-def to_tensor(a, device="cpu", dtype: Optional[torch.dtype] = None
+def to_tensor(a, device="cuda", dtype: Optional[torch.dtype] = None
               ) -> torch.Tensor:
-    """One numpy array (float32/int/bool or bfloat16) as a tensor."""
+    """One numpy array (float32/int/bool or bfloat16) as a tensor on
+    ``device`` (the card unless the caller asks for the CPU; raises
+    without one)."""
+    device = resolve_device(device)
     a = np.array(a)            # a writable copy: jax hands out read-only
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -43,11 +48,14 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
-def params_from_numpy(tree: Any, device="cpu",
+def params_from_numpy(tree: Any, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> Any:
-    """Param pytree -> same-structure dict/list of tensors. ``dtype``
-    casts every floating leaf; ``None`` keeps each leaf's own dtype (the
-    JAX init keeps norm scales in float32 under bfloat16 weights)."""
+    """Param pytree -> same-structure dict/list of tensors on ``device``
+    (the card unless the caller asks for the CPU; raises without one).
+    ``dtype`` casts every floating leaf; ``None`` keeps each leaf's own
+    dtype (the JAX init keeps norm scales in float32 under bfloat16
+    weights)."""
+    device = resolve_device(device)
     return _map(tree, lambda a: to_tensor(a, device, dtype))
 
 

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -54,7 +54,9 @@ def _target(src: Path) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library yet, one
     ``nvcc`` process per source, all started together. Returns
-    {kernel source stem: library path}. Raises on any failed build."""
+    {kernel source stem: library path}; each library's nvcc output (with
+    ptxas's registers, spills and shared memory per kernel) is kept beside
+    it as ``.log``. Raises on any failed build."""
     srcs = sorted(CSRC.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
@@ -77,6 +79,7 @@ def build_all() -> Dict[str, Path]:
         if p.returncode != 0:
             errors.append(f"{' '.join(cmd)}\n{log}")
             continue
+        out[s.stem].with_suffix(".log").write_text(log)
         os.replace(tmp, out[s.stem])   # atomic: concurrent builds agree
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

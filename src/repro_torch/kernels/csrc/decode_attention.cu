@@ -9,24 +9,34 @@
 //
 // Bound on the H100: memory. One step reads each valid K and V row once per
 // KV group: 4 * hd * KV bytes per valid position per row (bf16), against
-// about 4 * hd * H flops per position, far below the tensor-core ridge.
+// about 4 * hd * H flops per position, some 7 flops per byte, far below the
+// tensor-core ridge (295). What the work needs is bytes in flight on many
+// SMs, not arithmetic; a grid of one block per (KV head, row) keeps B x KV
+// SMs busy (16 of 132 at B 8, KV 2) and each of them walks its positions as
+// a chain of dependent loads.
 //
-// Design: grid (KV, B); a block of 8 warps serves the G <= 8 query heads of
-// one KV group of one row, so each K/V row is fetched once for all G heads.
+// Design: flash-decoding inside one launch. Each (KV head, row) gets a
+// thread-block cluster of 8 blocks; block r of the cluster takes the r-th
+// of 8 equal slices of the positions < valid_len[b], so the grid is
+// (KV x 8, B) blocks. A block brings its slice's K and V rows into shared
+// memory with 16-byte cp.async copies, in 32-position tiles through a ring
+// of 2-4 stages (every tile of a 64-position slice is in flight at once;
+// longer slices stream), stored with an XOR swizzle of the 16-byte chunks
+// so that a lane per position reads its row without bank conflicts. Warp g
+// serves query head g of the group (G <= 8), so each K/V row is fetched
+// once for all G heads: lane j dots row j of the tile with the pre-scaled
+// query (f32, in shared memory), one warp max and one warp sum update the
+// head's online softmax, and for P.V each lane owns hd / 32 output columns
+// while the warp reads V rows from shared memory. Scores, softmax and P.V
+// run in f32 on the CUDA cores: the work is memory-bound, so tensor cores
+// buy nothing. The 8 partial (max, sum, accumulator) triples of a cluster
+// merge through distributed shared memory into rank 0, which writes the
+// output; a block with an empty slice still reaches both cluster barriers.
 // The cache is read in place in the model's (B, C, KV, hd) layout, by the
-// strides the wrapper passes: no transpose or copy per step. Positions are
-// cut into tiles of 32; warp w takes tiles w, w + 8, ... For its tile a
-// lane owns one position: it reads that K row with 16-byte loads and
-// dots it with the G pre-scaled queries held in shared memory. The tile's
-// scores update a per-warp online softmax (max and sum by warp shuffles),
-// the probabilities go through shared memory, and for P.V each lane owns
-// hd / 32 output columns while the warp reads V rows coalesced. The 8 warp
-// partials merge through shared memory at the end. Only positions
-// < valid_len[b] are read, so ragged rows cost what they hold. All
-// arithmetic is f32; output is cast to q's type. q may be f32 over a bf16
-// cache (f32 activations over the engine's bf16 slot pool), as the model's
-// f32 runs attend. Splitting C across blocks (flash-decoding) to fill more
-// SMs at small B is left to later.
+// strides the wrapper passes: no transpose, copy or host-side descriptor
+// per step. Only positions < valid_len[b] are read, so ragged rows cost
+// what they hold. q may be f32 over a bf16 cache (f32 activations over the
+// engine's bf16 slot pool), as the model's f32 runs attend. hd 32, 64, 128.
 //
 // C entry point: decode_attention_launch(q, k, v, valid_len, out, B, H, KV,
 // C, D, k_sb, k_sc, v_sb, v_sc, dtype, stream): q and out (B, H, D)
@@ -34,16 +44,21 @@
 // int32 on the device; dtype 0 = all float32, 1 = all bfloat16, 2 = float32
 // q and out over a bfloat16 cache.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cmath>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kSplit = 8;     // blocks per cluster: slices of the positions
+constexpr int kWarps = 8;     // one per query head of the group
 constexpr int kGMax = 8;
-constexpr int kTile = 32;
+constexpr int kTile = 32;     // positions per shared-memory tile (a lane each)
+constexpr int kRingBytes = 32 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -72,133 +87,202 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Tile geometry for element type T and head width D: RB bytes per row,
+// NST ring stages, SMEM dynamic shared-memory bytes.
+template <typename T, int D>
+struct Geo {
+  static constexpr int RB = D * static_cast<int>(sizeof(T));
+  static constexpr int CH = RB / 16;               // 16-byte chunks per row
+  static constexpr int PLANE = kTile * RB;         // K (or V) of one tile
+  static constexpr int STAGE = 2 * PLANE;
+  static constexpr int NST = kRingBytes / STAGE > 4 ? 4
+                           : kRingBytes / STAGE < 2 ? 2
+                           : kRingBytes / STAGE;
+  static constexpr int DPL = D / 32;               // output columns per lane
+  // q_s, part_acc: kGMax x D f32; p_s: kWarps x kTile; part_m, part_l
+  static constexpr int SMEM = NST * STAGE + 2 * kGMax * D * 4
+                            + kWarps * kTile * 4 + 2 * kGMax * 4;
+};
+
+// byte offset of chunk c of tile row j: the chunk's index inside its
+// 128-byte line is XORed with the row (rows of 128 bytes or more) or with
+// the line (64-byte rows, two to a line), so the 8 lanes of a phase that
+// read chunk c of 8 consecutive rows hit 8 different bank groups
+template <int RB>
+__device__ __forceinline__ int swz(int j, int c) {
+  const int o = j * RB + c * 16;
+  const int key = RB >= 128 ? (j & 7) : ((o >> 7) & 7);
+  return (o & ~127) | ((((o >> 4) & 7) ^ key) << 4);
+}
+
 template <typename TQ, typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kWarps * 32)
 decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ valid_len,
               TQ* __restrict__ out, int H, int KV, int C, long long k_sb,
               long long k_sc, long long v_sb, long long v_sc, float scale) {
-  constexpr int VE = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int DPL = D / 32;          // output columns per lane
-  __shared__ __align__(16) float q_s[kGMax][D];
-  __shared__ float p_s[kWarps][kGMax][kTile];
-  __shared__ float m_s[kWarps][kGMax];
-  __shared__ float l_s[kWarps][kGMax];
-  __shared__ float acc_s[kWarps][kGMax][D];
+  using G_ = Geo<T, D>;
+  constexpr int VE = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int DPL = G_::DPL;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring = smem;
+  float* q_s = reinterpret_cast<float*>(smem + G_::NST * G_::STAGE);
+  float* part_acc = q_s + kGMax * D;
+  float* p_s = part_acc + kGMax * D;
+  float* part_m = p_s + kWarps * kTile;
+  float* part_l = part_m + kGMax;
 
-  const int kvh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int kvh = blockIdx.x / kSplit;
   const int b = blockIdx.y;
   const int G = H / KV;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int g = tid >> 5;              // this warp's query head
   const int lane = tid & 31;
 
   for (int i = tid; i < kGMax * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    q_s[g][d] = g < G
-        ? to_f(q[(static_cast<long long>(b) * H + kvh * G + g) * D + d]) * scale
+    const int gg = i / D, d = i % D;
+    q_s[i] = gg < G
+        ? to_f(q[(static_cast<long long>(b) * H + kvh * G + gg) * D + d])
+              * scale
         : 0.f;
   }
-  __syncthreads();
 
+  // this block's slice of the valid positions: [lo, hi)
   const int vl = min(max(valid_len[b], 0), C);
-  const T* kb = k + b * k_sb + static_cast<long long>(kvh) * D;
-  const T* vb = v + b * v_sb + static_cast<long long>(kvh) * D;
+  const int per = (vl + kSplit - 1) / kSplit;
+  const int lo = min(vl, rank * per);
+  const int hi = min(vl, lo + per);
+  const int n_t = (hi - lo + kTile - 1) / kTile;
+  const uint8_t* kb = reinterpret_cast<const uint8_t*>(
+      k + b * k_sb + static_cast<long long>(kvh) * D);
+  const uint8_t* vb = reinterpret_cast<const uint8_t*>(
+      v + b * v_sb + static_cast<long long>(kvh) * D);
+  const long long k_row = k_sc * static_cast<long long>(sizeof(T));
+  const long long v_row = v_sc * static_cast<long long>(sizeof(T));
 
-  float m[kGMax], l[kGMax], acc[kGMax][DPL];
+  // every thread copies its share of tile t's K and V rows into stage st
+  auto load = [&](int t, int st) {
+    uint8_t* dst = ring + st * G_::STAGE;
+    const int t0 = lo + t * kTile;
+    for (int i = tid; i < 2 * kTile * G_::CH; i += blockDim.x) {
+      const int plane = i / (kTile * G_::CH);
+      const int rem = i % (kTile * G_::CH);
+      const int j = rem / G_::CH, c = rem % G_::CH;
+      if (t0 + j >= hi) continue;
+      const uint8_t* src = plane == 0 ? kb + (t0 + j) * k_row
+                                      : vb + (t0 + j) * v_row;
+      cp_async16(dst + plane * G_::PLANE + swz<G_::RB>(j, c), src + c * 16);
+    }
+  };
+
+  float m = -INFINITY, l = 0.f, acc[DPL];
 #pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+  for (int t = 0; t < G_::NST - 1; ++t) {
+    if (t < n_t) load(t, t);
+    cp_async_commit();
   }
-
-  for (int t0 = warp * kTile; t0 < vl; t0 += kWarps * kTile) {
-    const int j = t0 + lane;
-    float s[kGMax];
+  __syncthreads();   // q_s is written
+  for (int t = 0; t < n_t; ++t) {
+    const int nt = t + G_::NST - 1;
+    if (nt < n_t) load(nt, nt % G_::NST);
+    cp_async_commit();
+    cp_async_wait<G_::NST - 1>();   // tile t's copies of this thread landed
+    __syncthreads();                // ... and every other thread's
+    const uint8_t* kst = ring + (t % G_::NST) * G_::STAGE;
+    const uint8_t* vst = kst + G_::PLANE;
+    const int t0 = lo + t * kTile;
+    if (g < G) {   // warp-uniform
+      float sc = -INFINITY;
+      if (t0 + lane < hi) {
+        float dot = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGMax; ++g) s[g] = 0.f;
-    if (j < vl) {
-      const uint4* kr = reinterpret_cast<const uint4*>(kb + j * k_sc);
+        for (int c = 0; c < G_::CH; ++c) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              kst + swz<G_::RB>(lane, c));
+          const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int c = 0; c < D / VE; ++c) {
-        const uint4 raw = __ldg(kr + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int u = 0; u < VE; ++u) {
-          const float kf = to_f(e[u]);
-#pragma unroll
-          for (int g = 0; g < kGMax; ++g)
-            if (g < G) s[g] = fmaf(q_s[g][c * VE + u], kf, s[g]);
+          for (int u = 0; u < VE; ++u)
+            dot = fmaf(q_s[g * D + c * VE + u], to_f(e[u]), dot);
         }
+        sc = dot;
       }
-    } else {
+      // t0 < hi, so lane 0 holds a real score and the new max is finite
+      const float m_new = fmaxf(m, warp_max(sc));
+      const float p = t0 + lane < hi ? __expf(sc - m_new) : 0.f;
+      const float alpha = __expf(m - m_new);   // 0 while m is still -inf
+      l = l * alpha + warp_sum(p);
 #pragma unroll
-      for (int g = 0; g < kGMax; ++g) s[g] = -INFINITY;
-    }
-    // online softmax over this tile; t0 < vl, so lane 0 holds a real score
-    // and the new max is finite
-#pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g < G) {
-        const float m_new = fmaxf(m[g], warp_max(s[g]));
-        const float p = j < vl ? __expf(s[g] - m_new) : 0.f;
-        const float alpha = __expf(m[g] - m_new);
-        l[g] = l[g] * alpha + warp_sum(p);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
-        m[g] = m_new;
-        p_s[warp][g][lane] = p;
-      }
-    }
-    __syncwarp();
-    const int jn = min(kTile, vl - t0);
+      for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
+      m = m_new;
+      p_s[g * kTile + lane] = p;
+      __syncwarp();
+      const int jn = min(kTile, hi - t0);
+      const int byte = lane * DPL * static_cast<int>(sizeof(T));
 #pragma unroll 4
-    for (int jj = 0; jj < jn; ++jj) {
-      const T* vr = vb + (t0 + jj) * v_sc + lane * DPL;
-      float vf[DPL];
+      for (int jj = 0; jj < jn; ++jj) {
+        const T* vr = reinterpret_cast<const T*>(
+            vst + swz<G_::RB>(jj, byte >> 4) + (byte & 15));
+        const float pj = p_s[g * kTile + jj];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) vf[i] = to_f(vr[i]);
-#pragma unroll
-      for (int g = 0; g < kGMax; ++g) {
-        if (g < G) {
-          const float p = p_s[warp][g][jj];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
-        }
+        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, to_f(vr[i]), acc[i]);
       }
+      __syncwarp();
     }
-    __syncwarp();
+    __syncthreads();   // the stage is consumed before it is refilled
   }
 
-#pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
+  // this block's partial; a block with an empty slice holds m = -inf,
+  // l = 0, acc = 0
+  if (g < G) {
     if (lane == 0) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
+      part_m[g] = m;
+      part_l[g] = l;
     }
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc_s[warp][g][lane * DPL + i] = acc[g][i];
+    for (int i = 0; i < DPL; ++i) part_acc[g * D + lane * DPL + i] = acc[i];
   }
-  __syncthreads();
-
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = tid; i < G * D; i += blockDim.x) {
+      const int gg = i / D;
+      float mr[kSplit];
+      float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float den = 0.f, num = 0.f;
+      for (int r = 0; r < kSplit; ++r) {
+        mr[r] = cluster.map_shared_rank(part_m, r)[gg];
+        mx = fmaxf(mx, mr[r]);
+      }
+      float den = 0.f, num = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that saw no position holds m = -inf, l = 0, acc = 0
-      const float wt = m_s[w][g] == -INFINITY ? 0.f : __expf(m_s[w][g] - mx);
-      den = fmaf(l_s[w][g], wt, den);
-      num = fmaf(acc_s[w][g][d], wt, num);
+      for (int r = 0; r < kSplit; ++r) {
+        const float wt = mr[r] == -INFINITY ? 0.f : __expf(mr[r] - mx);
+        den = fmaf(cluster.map_shared_rank(part_l, r)[gg], wt, den);
+        num = fmaf(cluster.map_shared_rank(part_acc, r)[i], wt, num);
+      }
+      out[(static_cast<long long>(b) * H + kvh * G) * D + i] =
+          from_f<TQ>(num / fmaxf(den, 1e-30f));
     }
-    out[(static_cast<long long>(b) * H + kvh * G + g) * D + d] =
-        from_f<TQ>(num / fmaxf(den, 1e-30f));
   }
+  cluster.sync();   // no block leaves while rank 0 reads its partial
 }
 
 template <typename TQ, typename T, int D>
@@ -206,8 +290,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* valid_len, void* out, int B, int H, int KV,
                      int C, long long k_sb, long long k_sc, long long v_sb,
                      long long v_sc, cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  decode_kernel<TQ, T, D><<<grid, kWarps * 32, 0, stream>>>(
+  constexpr int smem = Geo<T, D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_kernel<TQ, T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KV * kSplit, B);
+  decode_kernel<TQ, T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(valid_len),
       static_cast<TQ*>(out), H, KV, C, k_sb, k_sc, v_sb, v_sc,
@@ -223,10 +312,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   switch (D) {
     case 32:
       return launch_d<TQ, T, 32>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
-                             k_sc, v_sb, v_sc, stream);
+                                 k_sc, v_sb, v_sc, stream);
     case 64:
       return launch_d<TQ, T, 64>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
-                             k_sc, v_sb, v_sc, stream);
+                                 k_sc, v_sb, v_sc, stream);
+    case 128:
+      return launch_d<TQ, T, 128>(q, k, v, valid_len, out, B, H, KV, C,
+                                  k_sb, k_sc, v_sb, v_sc, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -239,7 +331,8 @@ extern "C" int decode_attention_launch(
     void* out, int B, int H, int KV, int C, int D, long long k_sb,
     long long k_sc, long long v_sb, long long v_sc, int dtype,
     void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kGMax || C < 1)
+  if (B < 1 || B > 65535 || KV < 1 || H % KV != 0 || H / KV > kGMax
+      || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -8,63 +8,79 @@
 // which the model runs in every layer at every prefill.
 //
 // Bound on the H100: at prefill lengths of a few hundred tokens the causal
-// score and P.V products (4 * hd flops per query-key pair and head) weigh
-// more than the bytes of q, k, v and the output, so the bound is the
-// tensor-core rate (989 TFLOP/s in bf16); at short lengths it is memory.
+// score and P.V products (4 * hd flops per query-key pair and head) are
+// bound by the tensor cores (989 TFLOP/s in bf16) or, at short lengths, by
+// the bytes of q, k, v and the output. Either way the products must run on
+// the tensor cores: on the CUDA cores (67 TFLOP/s in f32) the causal
+// products of one B 8, S 256 prefill alone need longer than a library
+// call takes for the whole function.
 //
-// Design (first, simple version: CUDA cores, not yet wgmma): grid
-// (ceil(S / 64), H, B); a block of 64 threads serves 64 query rows of one
-// head, one row per thread, with that row's scaled query and its f32
-// accumulator in registers. The block walks the key tiles its rows can see
-// (up to the causal limit, from the window's start), staging each 32-key
-// tile of K and V (from KV head h / G) in shared memory as f32 with 16-byte
-// loads. Every thread then reads the same K/V row at the same time, which
-// shared memory serves as a broadcast. Scores, max, exp and the rescaled
-// accumulator stay in registers (online softmax in f32). q, k, v and the
-// output are read and written in the model's (B, S, heads, hd) layout by
-// the strides the wrapper passes, so no transpose is made. Moving the two
-// products onto wgmma with TMA-fed tiles is the work of a later change.
-// Instantiated for hd 32 and 64: at hd 128 the per-thread query and
-// accumulator rows no longer fit the register file (ptxas spills), which
-// the wgmma version will not need.
+// bf16 design (dtype 1; wgmma + TMA): grid (H, B, ceil(S / 64)), the
+// query tile on the slowest axis and counted down, so the blocks with the
+// most causal key tiles launch first and the light ones fill in behind. A
+// block is one consumer warpgroup (128 threads) that owns a 64-row query
+// tile of one head, and one producer warp. The producer issues TMA loads
+// of the query tile once and of 64-key K and V tiles of KV head h / G into
+// a 2-stage shared-memory ring, each completion reported to an mbarrier;
+// the consumers release a stage through a second mbarrier. Tiles land
+// 128-byte swizzled (64-byte at hd 32), hd 128 as two 64-column boxes. Per
+// key tile the warpgroup runs S = Q.K^T on wgmma (m64n64k16, Q and K from
+// shared memory, f32 accumulators), scales the f32 scores (so no rounding
+// is added to q), updates the online softmax in registers (row max and sum
+// across the four lanes that share a row), rounds P to bf16 straight from
+// the accumulator fragment into the register A operand, and runs O += P.V
+// on wgmma with V from shared memory in the transposed (MN-major) layout.
+// Rounding P to bf16 before P.V is what the JAX model does too. Key tiles
+// past the causal limit or before the window's start are not loaded; only
+// tiles that cross the diagonal, the window's start or the end of the
+// sequence are masked.
+// A row's key-tile walk and reduction order do not depend on S (no split
+// over keys), so the real rows of a right-padded bucket are bit-identical
+// to an unpadded call. The normalised O tile is staged in bf16 in the Q
+// tile's buffer (in the swizzled layout) and written by one TMA store per
+// column chunk: 16-byte rows instead of scattered 4-byte stores. q, k, v
+// and the output are read and written in the model's (B, S, heads, hd)
+// layout through one 4-D tensor map each (hd, heads, S, B), encoded on the
+// host per call from the strides the wrapper passes; the TMA unit
+// zero-fills rows past S on loads and clips them on the store, so no
+// transpose or copy is made. hd 32, 64 and 128.
+//
+// f32 design (dtype 0; parity runs only): CUDA cores, one thread per query
+// row, 32-key K/V tiles staged in shared memory, online softmax in f32.
+// TF32 tensor cores would lose the f32 parity that path exists for. At
+// hd 128 the per-thread query and accumulator rows exceed the register
+// file and ptxas spills them to local memory: correct, and slow.
 //
 // C entry point: flash_attention_launch(q, k, v, out, B, S, H, KV, D, q_sb,
 // q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, dtype, stream);
 // head stride D and element stride 1 for every tensor; dtype 0 = float32,
 // 1 = bfloat16.
 
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kRows = 64;   // query rows (threads) per block
 constexpr int kKeys = 32;   // keys per shared-memory tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int H,
-             int KV, long long q_sb, long long q_ss, long long k_sb,
-             long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-             long long o_ss, int causal, int window, float scale) {
-  constexpr int VE = 16 / sizeof(T);      // elements per 16-byte load
-  constexpr int CHUNKS = D / VE;          // 16-byte loads per row
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int S, int H, int KV, long long q_sb, long long q_ss,
+                 long long k_sb, long long k_ss, long long v_sb,
+                 long long v_ss, long long o_sb, long long o_ss, int causal,
+                 int window, float scale) {
+  constexpr int CHUNKS = D / 4;           // 16-byte loads per row
   __shared__ __align__(16) float k_s[kKeys][D];
   __shared__ __align__(16) float v_s[kKeys][D];
 
@@ -78,14 +94,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D], acc[D];
   if (row_ok) {
-    const uint4* src = reinterpret_cast<const uint4*>(
+    const float4* src = reinterpret_cast<const float4*>(
         q + b * q_sb + qi * q_ss + static_cast<long long>(h) * D);
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
-      const uint4 raw = __ldg(src + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int u = 0; u < VE; ++u) qr[c * VE + u] = to_f(e[u]) * scale;
+      const float4 x = __ldg(src + c);
+      qr[4 * c + 0] = x.x * scale;
+      qr[4 * c + 1] = x.y * scale;
+      qr[4 * c + 2] = x.z * scale;
+      qr[4 * c + 3] = x.w * scale;
     }
   } else {
 #pragma unroll
@@ -101,36 +118,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     k_hi = min(S, q0 + kRows);
     if (window > 0) k_lo = max(0, q0 - window + 1) / kKeys * kKeys;
   }
-  const T* kb = k + b * k_sb + static_cast<long long>(kvh) * D;
-  const T* vb = v + b * v_sb + static_cast<long long>(kvh) * D;
+  const float* kb = k + b * k_sb + static_cast<long long>(kvh) * D;
+  const float* vb = v + b * v_sb + static_cast<long long>(kvh) * D;
 
   for (int kt = k_lo; kt < k_hi; kt += kKeys) {
     __syncthreads();   // the previous tile is consumed
     for (int i = tid; i < kKeys * CHUNKS; i += kRows) {
       const int r = i / CHUNKS, c = i % CHUNKS;
       const int kj = kt + r;
-      float kf[VE], vf[VE];
-      if (kj < S) {
-        const uint4 kraw = __ldg(reinterpret_cast<const uint4*>(
-            kb + kj * k_ss) + c);
-        const uint4 vraw = __ldg(reinterpret_cast<const uint4*>(
-            vb + kj * v_ss) + c);
-        const T* ke = reinterpret_cast<const T*>(&kraw);
-        const T* ve = reinterpret_cast<const T*>(&vraw);
-#pragma unroll
-        for (int u = 0; u < VE; ++u) {
-          kf[u] = to_f(ke[u]);
-          vf[u] = to_f(ve[u]);
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < VE; ++u) kf[u] = vf[u] = 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < VE; ++u) {
-        k_s[r][c * VE + u] = kf[u];
-        v_s[r][c * VE + u] = vf[u];
-      }
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(&k_s[r][0])[c] =
+          kj < S ? __ldg(reinterpret_cast<const float4*>(kb + kj * k_ss) + c)
+                 : z;
+      reinterpret_cast<float4*>(&v_s[r][0])[c] =
+          kj < S ? __ldg(reinterpret_cast<const float4*>(vb + kj * v_ss) + c)
+                 : z;
     }
     __syncthreads();
     if (!row_ok) continue;
@@ -183,47 +185,556 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* dst = out + b * o_sb + qi * o_ss + static_cast<long long>(h) * D;
+    float* dst = out + b * o_sb + qi * o_ss + static_cast<long long>(h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dst[d] = from_f<T>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) dst[d] = acc[d] * inv;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int H, int KV, long long q_sb,
-                     long long q_ss, long long k_sb, long long k_ss,
-                     long long v_sb, long long v_ss, long long o_sb,
-                     long long o_ss, int causal, int window,
-                     cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, int B, int S, int H, int KV,
+                       long long q_sb, long long q_ss, long long k_sb,
+                       long long k_ss, long long v_sb, long long v_ss,
+                       long long o_sb, long long o_ss, int causal, int window,
+                       cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, q_sb, q_ss,
-      k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
+  flash_f32_kernel<D><<<grid, kRows, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, q_sb,
+      q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int KV, int D, long long q_sb,
-                   long long q_ss, long long k_sb, long long k_ss,
-                   long long v_sb, long long v_ss, long long o_sb,
-                   long long o_ss, int causal, int window,
-                   cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, out, B, S, H, KV, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
-                             stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, out, B, S, H, KV, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
-                             stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 64;            // query rows per block
+constexpr int kBN = 64;            // keys per tile
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kConsumers = 128;    // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+
+// Shared-memory geometry of one 64-row bf16 tile at head width D: stored
+// as D / CC column chunks of 64 rows x CC columns, each row SW bytes and
+// swizzled by the TMA unit in SW-byte atoms of 8 rows.
+template <int D>
+struct Geo {
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;   // swizzle bytes
+  static constexpr int CC = SW / 2;                       // chunk columns
+  static constexpr int NCH = D / CC;                      // chunks per row
+  static constexpr int CHUNK_BYTES = 64 * SW;
+  static constexpr int TILE_BYTES = 64 * D * 2;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr int SMEM = (1 + 2 * kStages) * TILE_BYTES + 1024 + 64;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// spins until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box (CC columns x 1 head x 64 rows x 1 batch) of a 4-D tensor map
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// one box of a 4-D tensor map from shared memory; rows past the tensor's
+// extent are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int col, int head,
+                                          int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col),
+         "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// barrier 1 over the consumer warpgroup only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout type
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>(lbo >> 4) << 16)
+       | (static_cast<uint64_t>(sbo >> 4) << 32)
+       | (layout << 62);
+}
+
+// Q or K tile as a K-major operand (hd contiguous), at k-step kk (16
+// columns): the step's 32 bytes inside its swizzled chunk
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int kk) {
+  using G = Geo<D>;
+  const int col = kk * 16;
+  return make_desc(base + (col / G::CC) * G::CHUNK_BYTES
+                       + (col % G::CC) * 2,
+                   16, 8 * G::SW, G::LAYOUT);
+}
+
+// V tile as the MN-major B operand of P.V (hd contiguous, keys along K) at
+// k-step kk (16 keys = 16 rows); 64-column chunks lie CHUNK_BYTES apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int kk) {
+  using G = Geo<D>;
+  return make_desc(base + kk * 16 * G::SW, G::CHUNK_BYTES, 8 * G::SW,
+                   G::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// O (64 x D) += P (64 x 16, registers) . V (16 x D, shared memory)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap to, int S, int H,
+                  int KV, int causal, int window, float scale_log2) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + G::TILE_BYTES;             // + stage * TILE
+  const uint32_t v_s = k_s + kStages * G::TILE_BYTES;    // + stage * TILE
+  const uint32_t q_full = v_s + kStages * G::TILE_BYTES;
+  // full[st] at q_full + 8 (1 + st), empty[st] at q_full + 8 (1 + kStages
+  // + st)
+  auto full = [&](int st) { return q_full + 8u * (1 + st); };
+  auto empty = [&](int st) { return q_full + 8u * (1 + kStages + st); };
+
+  // the query tile is the slowest grid axis, counted down, so the blocks
+  // with the most causal key tiles are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  // keys this block's rows can see: [k_lo, k_hi), walked in 64-key tiles
+  int k_hi = S, k_lo = 0;
+  if (causal) {
+    k_hi = min(S, q0 + kBM);
+    if (window > 0) k_lo = max(0, q0 - window + 1);
   }
+  const int t_lo = k_lo / kBN;
+  const int n_tiles = (k_hi + kBN - 1) / kBN - t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one lane issues every TMA load of the block
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, G::TILE_BYTES);
+#pragma unroll
+      for (int c = 0; c < G::NCH; ++c)
+        tma_load(&tq, q_s + c * G::CHUNK_BYTES, q_full, c * G::CC, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * G::TILE_BYTES);
+        const int kt = (t_lo + i) * kBN;
+#pragma unroll
+        for (int c = 0; c < G::NCH; ++c) {
+          tma_load(&tk, k_s + st * G::TILE_BYTES + c * G::CHUNK_BYTES,
+                   full(st), c * G::CC, kvh, kt, b);
+          tma_load(&tv, v_s + st * G::TILE_BYTES + c * G::CHUNK_BYTES,
+                   full(st), c * G::CC, kvh, kt, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: thread t holds rows r0 and r0 + 8 of the wgmma fragments,
+  // columns 8 j + cq + {0, 1} of every 8-column block j
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    mbar_wait(full(st), (i / kStages) & 1);
+    const uint32_t ks = k_s + st * G::TILE_BYTES;
+    const uint32_t vs = v_s + st * G::TILE_BYTES;
+
+    // S = Q . K^T (64 x 64, f32)
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<D>(q_s, kk), desc_kmajor<D>(ks, kk),
+                   kk > 0 ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait0();
+
+    // mask the tiles that cross an edge; the row max is taken on the raw
+    // scores (the scale is positive) and scaled once per row
+    const int kt = (t_lo + i) * kBN;
+    const bool mask = kt + kBN > S
+        || (causal && (kt + kBN - 1 > q0
+                       || (window > 0 && kt < q0 + kBM - window)));
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (mask) {
+          const int key = kt + 8 * j + cq + (e & 1);
+          const int row = r0 + 8 * (e >> 1);
+          bool keep = key < S;
+          if (causal) {
+            keep = keep && key <= row;
+            if (window > 0) keep = keep && key > row - window;
+          }
+          if (!keep) s[4 * j + e] = -INFINITY;
+        }
+        if (e < 2) mx0 = fmaxf(mx0, s[4 * j + e]);
+        else mx1 = fmaxf(mx1, s[4 * j + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // running maxima in log2 units of the scaled scores
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    // a row with no visible key yet keeps p = 0 and alpha = 0 (no NaN)
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float al0 = fast_exp2(m0 - mu0), al1 = fast_exp2(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P = 2^(s * scale_log2 - m) in f32 for the row sums, rounded to bf16
+    // into the A fragments: k-step kk covers 8-column blocks 2 kk, 2 kk + 1
+    uint32_t a[4][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p00 = fast_exp2(fmaf(s[4 * j + 0], scale_log2, -mu0));
+      const float p01 = fast_exp2(fmaf(s[4 * j + 1], scale_log2, -mu0));
+      const float p10 = fast_exp2(fmaf(s[4 * j + 2], scale_log2, -mu1));
+      const float p11 = fast_exp2(fmaf(s[4 * j + 3], scale_log2, -mu1));
+      ps0 += p00 + p01;
+      ps1 += p10 + p11;
+      a[j / 2][2 * (j % 2) + 0] = pack_bf16(p00, p01);
+      a[j / 2][2 * (j % 2) + 1] = pack_bf16(p10, p11);
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+    if (al0 != 1.f || al1 != 1.f) {   // a row max moved
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
+    }
+
+    // O += P . V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(o, a[kk], desc_mnmajor<D>(vs, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    mbar_arrive(empty(st));   // this thread's reads of the stage are done
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  // O in bf16 into the Q tile's buffer (free once every warp's last
+  // wgmma has read it), in the swizzled layout of the output's tensor map,
+  // then one TMA store per column chunk: 16-byte rows instead of 4-byte
+  // scattered stores, and rows past S are clipped by the TMA unit
+  consumer_sync();
+  const int lr = warp * 16 + (lane >> 2);   // row r0 inside the tile
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cq;
+      const uint32_t off = (col / G::CC) * G::CHUNK_BYTES
+                         + (lr + 8 * hr) * G::SW + (col % G::CC) * 2;
+      // the TMA swizzle: 16-byte chunk bits XOR the 128-byte line bits
+      const uint32_t swz = off ^ (((off >> 7) & (G::SW / 16 - 1)) << 4);
+      const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+          o[4 * j + 2 * hr] * inv[hr], o[4 * j + 2 * hr + 1] * inv[hr]);
+      asm volatile("st.shared.b32 [%0], %1;\n"
+                   :: "r"(q_s + swz),
+                      "r"(*reinterpret_cast<const uint32_t*>(&v2))
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumer_sync();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < G::NCH; ++c)
+      tma_store(&to, q_s + c * G::CHUNK_BYTES, c * G::CC, h, q0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime already
+// loaded (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib == nullptr) return nullptr;
+    return reinterpret_cast<EncodeTiled>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// (hd, heads, S, B) bf16 view with element strides (1, D, ss, sb); boxes
+// of CC columns x 1 head x 64 rows x 1 batch
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              long long sb, long long ss) {
+  using G = Geo<D>;
+  const cuuint64_t es = 2;
+  const cuuint64_t hs = D * es;
+  // the stride of an axis of extent 1 is never used: keep it plausible
+  const cuuint64_t s_st = S > 1 ? ss * es : heads * hs;
+  const cuuint64_t b_st = B > 1 ? sb * es : S * s_st;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {hs, s_st, b_st};
+  const cuuint32_t box[4] = {G::CC, 1, kBM, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int H, int KV,
+                        long long q_sb, long long q_ss, long long k_sb,
+                        long long k_ss, long long v_sb, long long v_ss,
+                        long long o_sb, long long o_ss, int causal,
+                        int window, cudaStream_t stream) {
+  using G = Geo<D>;
+  if (encoder() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map<D>(&tq, q, B, S, H, q_sb, q_ss)
+      || !make_map<D>(&tk, k, B, S, KV, k_sb, k_ss)
+      || !make_map<D>(&tv, v, B, S, KV, v_sb, v_ss)
+      || !make_map<D>(&to, out, B, S, H, o_sb, o_ss))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (S + kBM - 1) / kBM);
+  flash_bf16_kernel<D><<<grid, kThreads, G::SMEM, stream>>>(
+      tq, tk, tv, to, S, H, KV, causal, window,
+      1.4426950408889634f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -233,19 +744,26 @@ extern "C" int flash_attention_launch(
     int H, int KV, int D, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, long long o_sb,
     long long o_ss, int causal, int window, int dtype, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535
+      || (S + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+#define FLASH_ARGS q, k, v, out, B, S, H, KV, q_sb, q_ss, k_sb, k_ss, v_sb, \
+                   v_ss, o_sb, o_ss, causal, window, s
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch<float>(q, k, v, out, B, S, H, KV, D, q_sb, q_ss, k_sb, k_ss,
-                        v_sb, v_ss, o_sb, o_ss, causal, window, s);
+    switch (D) {
+      case 32: err = launch_f32<32>(FLASH_ARGS); break;
+      case 64: err = launch_f32<64>(FLASH_ARGS); break;
+      case 128: err = launch_f32<128>(FLASH_ARGS); break;
+    }
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, q_sb, q_ss,
-                                k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
-                                window, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 32: err = launch_bf16<32>(FLASH_ARGS); break;
+      case 64: err = launch_bf16<64>(FLASH_ARGS); break;
+      case 128: err = launch_bf16<128>(FLASH_ARGS); break;
+    }
   }
+#undef FLASH_ARGS
   return static_cast<int>(err);
 }

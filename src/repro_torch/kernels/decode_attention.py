@@ -6,7 +6,8 @@ Unlike the Pallas kernel, which takes ``(B, HKV, C, D)``, the wrapper
 reads the model's ``(B, C, KV, hd)`` per-layer cache view in place, by
 strides, so a decode step makes no transpose. On a CPU tensor it runs the
 plain version (``ref.decode_attention_ref``); on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises. One launch splits each row's positions over a
+cluster of 8 blocks per KV head and merges their partials on chip.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.kernels import build, ref
 __all__ = ["decode_attention", "MAX_GROUP", "HEAD_DIMS"]
 
 MAX_GROUP = 8              # query heads per KV head the kernel serves
-HEAD_DIMS = (32, 64)       # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
 # (q dtype, cache dtype) -> the kernel's dtype code; f32 q over a bf16
 # cache is how f32 params attend over the engine's bf16 slot pool
 _DTYPES = {(torch.float32, torch.float32): 0,

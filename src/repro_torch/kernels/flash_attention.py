@@ -5,7 +5,9 @@
 The wrapper reads q as ``(B, S, H, hd)`` and k/v as ``(B, S, KV, hd)`` —
 the model's layouts — by strides, and writes ``(B, S, H, hd)``. On a CPU
 tensor it runs the plain version (``ref.flash_attention_ref``); on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. bf16 runs on the tensor cores
+(wgmma, TMA-fed tiles); f32, which only parity runs use, runs on the CUDA
+cores so that it keeps f32 accuracy.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64)       # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
          + (ctypes.c_longlong,) * 8 + (ctypes.c_int,) * 3

@@ -6,9 +6,11 @@ machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
 
 Tolerances: top2gap bit-exact (the same two f32 values subtracted, ties
 included); attention within 1e-5 in f32 and 2e-2 in bf16 against the f32
-plain version on the same inputs (bf16 output rounding; the kernels use
-the fast exp); the selective scan within 2e-4 of its plain version (f32
-throughout, other summation order over N; the JAX sweep's limit); the
+plain version on the same inputs (bf16 output rounding, and in the bf16
+flash kernel P rounded to bf16 before P.V as the JAX model does; the
+kernels use the fast exp); the selective scan within 2e-4 of its plain
+version (f32 throughout, other summation order over N; the JAX sweep's
+limit); the
 smoke-size models within 1e-4 of their CPU runs in f32.
 """
 import numpy as np
@@ -85,7 +87,7 @@ def test_top2gap_kernel_strided_rows(cuda):
     (torch.bfloat16, torch.bfloat16, 2e-2),
     (torch.float32, torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("h,kv,d", [(14, 2, 64), (4, 2, 32), (16, 2, 32),
-                                    (8, 8, 64)])
+                                    (8, 8, 64), (16, 2, 128)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, kv_dtype, atol,
                                                h, kv, d):
     b, c = 8, 512
@@ -111,9 +113,44 @@ def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
         decode_attention(q[..., :48], k[..., :48], k[..., :48], 3)
     with pytest.raises(ValueError):
         decode_attention(q, k.transpose(1, 2), k.transpose(1, 2), 3)
-    wide = torch.zeros(2, 16, 2, 128, device=cuda)          # hd 128
+    wide = torch.zeros(2, 16, 2, 96, device=cuda)           # hd 96
     with pytest.raises(ValueError):
-        decode_attention(torch.zeros(2, 4, 128, device=cuda), wide, wide, 3)
+        decode_attention(torch.zeros(2, 4, 96, device=cuda), wide, wide, 3)
+    with pytest.raises(ValueError):                            # G 9
+        decode_attention(torch.zeros(2, 18, 64, device=cuda), k, k, 3)
+
+
+_DECODE_DTYPES = {0: (torch.float32, torch.float32, 1e-5),
+                  1: (torch.bfloat16, torch.bfloat16, 2e-2),
+                  2: (torch.float32, torch.bfloat16, 1e-5)}
+
+
+@pytest.mark.parametrize("code", sorted(_DECODE_DTYPES))
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("c,d", [(512, 64), (4096, 64), (512, 128),
+                                 (4096, 32)])
+def test_decode_attention_kernel_cluster_slices(cuda, code, g, c, d):
+    """The cluster's 8 slices of a row: valid_len at the slice and tile
+    edges (1, 63, 64, 65, 511, 512; at C 4096 also 4095 and 4096, several
+    tiles per block), rows with valid_len 1 beside full rows in one call,
+    every group size G 1-8 and the three dtype codes, over the layer view
+    of a rep-stacked pool."""
+    dtype, kv_dtype, atol = _DECODE_DTYPES[code]
+    b, kv = 8, 2
+    h = g * kv
+    lens = [1, 63, 64, 65, 511, 512, 1, c] if c == 512 else \
+        [1, 4096, 65, 512, 4095, 1, 2049, 64]
+    q = torch.from_numpy(_rand(11, (b, h, d))).to(cuda, dtype)
+    pool = torch.from_numpy(_rand(12, (2, b, c, kv, d))).to(cuda, kv_dtype)
+    vpool = torch.from_numpy(_rand(13, (2, b, c, kv, d))).to(cuda, kv_dtype)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, pool[1], vpool[1], vl)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1 and out.dtype == dtype
+    ref = tref.decode_attention_ref(q.float(), pool[1].float(),
+                                    vpool[1].float(), vl)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
@@ -135,7 +172,7 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, atol, s, causal,
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_attention_kernel_head_dims(cuda, d):
     q = torch.from_numpy(_rand(1, (2, 70, 4, d))).to(cuda)
     k = torch.from_numpy(_rand(2, (2, 70, 2, d))).to(cuda)
@@ -155,6 +192,49 @@ def test_flash_attention_kernel_right_padding_bit_identical(cuda):
                            v[:, :s].contiguous())
     padded = flash_attention(q, k, v)
     assert torch.equal(padded[:, :s], full)
+
+
+_MODES = {"causal": (True, 0), "window7": (True, 7),
+          "window100": (True, 100), "full": (False, 0)}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g,b", [(1, 1), (2, 8), (7, 8)])
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("s", [1, 17, 64, 65, 100, 256, 512])
+def test_flash_attention_bf16_kernel_sweep(cuda, d, g, b, mode, s):
+    """The bf16 wgmma kernel against the f32 plain version: S below, at,
+    across and past the 64-row tiles, causal, windowed (7 and 100) and
+    full, group sizes 1, 2 and 7, B 1 and 8, hd 32, 64 and 128."""
+    causal, window = _MODES[mode]
+    kv = 2 if g > 1 else 1
+    h = g * kv
+    q = torch.from_numpy(_rand(21, (b, s, h, d))).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(_rand(22, (b, s, kv, d))).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(_rand(23, (b, s, kv, d))).to(cuda, torch.bfloat16)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("d,window", [(64, 0), (128, 0), (64, 100),
+                                      (32, 7)])
+def test_flash_attention_kernel_right_padding_at_several_n(cuda, d, window):
+    """Real rows of a 256-row bucket are bit-identical to the unpadded call
+    for prompts ending inside, at and just past a 64-row tile."""
+    b, h, kv, s = 2, 14, 2, 256
+    q, k, v = (torch.from_numpy(_rand(30 + i, (b, s, n, d))).to(
+        cuda, torch.bfloat16) for i, n in ((1, h), (2, kv), (3, kv)))
+    padded = flash_attention(q, k, v, window=window)
+    for n in (1, 17, 63, 64, 65, 100, 200, 255):
+        part = flash_attention(q[:, :n].contiguous(), k[:, :n].contiguous(),
+                               v[:, :n].contiguous(), window=window)
+        assert torch.equal(padded[:, :n], part), n
 
 
 def test_smoke_model_on_card_matches_cpu(cuda):

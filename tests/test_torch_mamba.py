@@ -141,7 +141,7 @@ def smoke():
     for blk in tree["blocks"]:
         blk["mamba"]["conv_b"] = _rand(4, blk["mamba"]["conv_b"].shape, 0.1)
     return jcfg, tcfg, jax.tree.map(jnp.asarray, tree), params_from_numpy(
-        tree)
+        tree, device="cpu")
 
 
 def _layer(tree, r=0):
@@ -317,7 +317,8 @@ def test_init_params_and_cache_layout_match_jax():
             (JM.init_cache(jcfg, 3, 16), TM.init_cache(tcfg, 3, 16,
                                                        device="cpu"))):
         # the JAX tree carried across keeps every leaf's dtype too
-        moved = cache_from_numpy(jax.tree.map(np.asarray, jtree))
+        moved = cache_from_numpy(jax.tree.map(np.asarray, jtree),
+                                 device="cpu")
         jl, jdef = jax.tree.flatten(jtree)
         for other in (ttree, moved):
             tl, tdef = jax.tree.flatten(other)
@@ -354,7 +355,7 @@ def engine_setup():
         tree = jax.tree.map(np.asarray, JM.init_params(
             jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32))
         params[name] = (jax.tree.map(jnp.asarray, tree),
-                        params_from_numpy(tree))
+                        params_from_numpy(tree, device="cpu"))
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, tcfg.vocab_size, 2 + 3 * i).astype(np.int32)
                for i in range(5)]                 # from 2 < d_conv - 1 up

@@ -63,7 +63,8 @@ def _params(jcfg, seed=0):
             if name in blk["attn"]:
                 blk["attn"][name] = (rng.standard_normal(
                     blk["attn"][name].shape) * 0.02).astype(np.float32)
-    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree)
+    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree,
+                                                       device="cpu")
 
 
 def _cache_close(tcache, jcache):
@@ -119,7 +120,7 @@ def test_decode_step_matches_jax(variant, ragged):
     toks = _tokens(3, (2, 20))
     _, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
                        cache_len=24)
-    tc = cache_from_numpy(jax.tree.map(np.asarray, jc))
+    tc = cache_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
     ci = np.asarray([20, 7], np.int32) if ragged else np.int32(20)
     for step in range(3):
         nxt = _tokens(10 + step, (2, 1))
@@ -169,7 +170,7 @@ def test_decode_fused_steps_matches_jax(k, mode):
         arr[i, :n] = _tokens(30 + i, (n,))
     jl, jc = JM.prefill_bucketed(jp, jcfg, jnp.asarray(arr),
                                  jnp.asarray(lens), cache_len=32)
-    tc = cache_from_numpy(jax.tree.map(np.asarray, jc))
+    tc = cache_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
     first = np.array(jnp.argmax(jl, axis=-1), np.int32)
     gaps0 = np.array(jcert.top2_gap(jl), np.float32)
     active = np.asarray([True, True, False])

@@ -47,7 +47,7 @@ def setup():
         tree = jax.tree.map(np.asarray, JM.init_params(
             jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32))
         params[name] = (jax.tree.map(jnp.asarray, tree),
-                        params_from_numpy(tree))
+                        params_from_numpy(tree, device="cpu"))
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, tcfg.vocab_size, 6 + 3 * i).astype(np.int32)
                for i in range(5)]
@@ -207,7 +207,7 @@ def test_sliding_window_exact_length_fallback_matches_jax(spec_k):
     tree = jax.tree.map(np.asarray, JM.init_params(
         jcfg, jax.random.PRNGKey(3), dtype=jnp.float32))
     params = {"a": (jax.tree.map(jnp.asarray, tree),
-                    params_from_numpy(tree))}
+                    params_from_numpy(tree, device="cpu"))}
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
                for n in (4, 5, 7, 14, 20)]
