@@ -19,9 +19,13 @@ non-zero exit code and no ``ok`` line:
              times kernel, plain version and the PyTorch library call that
              computes the same function where one exists (a yardstick the
              port never calls), with CUDA events, against the least time
-             the card needs for the same bytes and operations (the
-             attention rows print both counts; flash is timed at S 256
-             and at S 64, the most common prefill bucket).
+             the card needs for the same bytes and operations (every row
+             prints both counts; for the scan the operation count is its
+             exponentials). top2gap is timed at B 8 (V 151,936, 65,024
+             and 4,096, the last nearly all fixed cost) and at B 1,
+             V 151,936 (reference mode and the teacher-forced checks);
+             flash at S 256 and at S 64, the most common prefill bucket;
+             the scan at S 200 and S 64.
 4. serve   — the main path: a two-stage cascade of full-width qwen2-0.5b
              models (random bf16 weights from seeds 0 and 1) served by the
              fused ``TokenEngine`` (8 KV slots of 512 tokens, spec_k 4):
@@ -235,27 +239,32 @@ def _time_top2gap(x) -> dict:
     kms = device_ms([lambda t=t: top2gap(t) for t in xs])
     pms = device_ms([lambda t=t: ref.top2gap_ref(t) for t in xs])
     lms = device_ms([lambda t=t: torch.topk(t, 2, dim=-1) for t in xs])
-    bms, by = bound(b * v * 4 + b * 8, 2 * b * v, FP32_FLOP_PER_S)
+    nbytes, flops = b * v * 4 + b * 8, 2 * b * v
+    bms, by = bound(nbytes, flops, FP32_FLOP_PER_S)
     return dict(shape=f"B={b} V={v} f32", ms=kms, plain_ms=pms,
                 library_ms=lms, library="torch.topk(k=2)", bound_ms=bms,
-                bound_by=by)
+                bound_by=by, bound_bytes=nbytes, bound_flops=flops)
 
 
 def kernel_top2gap(dev) -> dict:
-    """At the qwen2 vocab (151,936, the row's headline shape) and the
-    falcon-mamba vocab (65,024)."""
+    """At the qwen2 vocab (151,936, the row's headline shape at B 8, and
+    at B 1, where reference mode and the teacher-forced checks reduce),
+    the falcon-mamba vocab (65,024), and a 4,096-wide row, whose time is
+    almost all the kernel's fixed cost (launch, cluster barrier, one
+    round trip to device memory)."""
     worst = 0.0
     timed = {}
-    for b, v in ((1, 151936), (8, 151936), (8, 65024)):
+    for b, v in ((1, 151936), (8, 151936), (8, 65024), (8, 4096)):
         x = torch.randn(b, v, generator=_gen(b), device=dev) * 3.0
         # planted exact top-1 ties far apart (other threads, other warps):
         # row 0 two-way, and at B > 1 the last row three-way
         top = float(x.max()) + 1.0
         x[0, 17] = x[0, v - 5] = top
         if b > 1:
-            x[b - 1, 40000] = x[b - 1, 3] = x[b - 1, v - 1935] = top + 1.0
-        gap, idx = top2gap(x)
+            x[b - 1, min(40000, v // 2)] = x[b - 1, 3] = \
+                x[b - 1, v - 1935] = top + 1.0
         rgap, ridx = ref.top2gap_ref(x)
+        gap, idx = top2gap(x)
         torch.cuda.synchronize()
         check(torch.equal(idx, ridx), f"top2gap index equal (B={b})")
         check(torch.equal(gap, rgap), f"top2gap gap bit-equal (B={b})")
@@ -265,10 +274,10 @@ def kernel_top2gap(dev) -> dict:
             check(int(idx[b - 1]) == 3 and float(gap[b - 1]) == 0.0,
                   "top2gap three-way tie -> gap 0, lowest index")
         worst = max(worst, float((gap - rgap).abs().max()))
-        if b == 8:
-            timed[v] = _time_top2gap(x)
-    return dict(name="top2gap", max_abs_err=worst, **timed[151936],
-                at_v65024=timed[65024])
+        timed[b, v] = _time_top2gap(x)
+    return dict(name="top2gap", max_abs_err=worst, **timed[8, 151936],
+                at_v65024=timed[8, 65024], at_b1=timed[1, 151936],
+                at_v4096=timed[8, 4096])
 
 
 def kernel_decode(dev) -> dict:
@@ -368,8 +377,9 @@ def kernel_flash(dev) -> dict:
 
 def kernel_mamba(dev) -> dict:
     """The selective scan at the SSM prefill's shapes (falcon-mamba-7b:
-    Di 8192, N 16, x bf16): B 1 at the longest prompt, then B 2 at an odd
-    length from a nonzero state; y and h_last against the plain scan."""
+    Di 8192, N 16, x bf16): B 1 at the longest prompt (the row's shape)
+    and at S 64, the short end of the prefills, then B 2 at an odd length
+    from a nonzero state; y and h_last against the plain scan."""
     di, n = 8192, 16
     g = _gen(13)
 
@@ -386,33 +396,41 @@ def kernel_mamba(dev) -> dict:
         return dt, a, bm, cm, d, x, h0
 
     worst = 0.0
-    for b, s, with_h0 in ((1, PROMPT_HI, False), (2, 33, True)):
+    for b, s, with_h0 in ((1, PROMPT_HI, False), (1, 64, False),
+                          (2, 33, True)):
         ins = make(b, s, with_h0)
-        y, h = mamba_scan(*ins)
         ry, rh = ref.mamba_scan_ref(*ins)
+        y, h = mamba_scan(*ins)
         torch.cuda.synchronize()
         err = max(float((y - ry).abs().max()), float((h - rh).abs().max()))
         check(err <= SCAN_TOL, f"mamba_scan B={b} S={s} y and h_last "
                                f"within {SCAN_TOL} ({err})")
         worst = max(worst, err)
-    b, s = 1, PROMPT_HI
-    nbytes = (b * s * di * (4 + 2 + 4) + 2 * b * s * n * 4 + di * n * 4
-              + di * 4 + b * di * n * 4)
-    sets = [make(b, s) for _ in range(copies(nbytes))]
-    kms = device_ms([lambda t=t: mamba_scan(*t) for t in sets])
-    pms = device_ms([lambda t=t: ref.mamba_scan_ref(*t) for t in sets],
-                    reps=3, per_window=2)
-    # per state and step: dt*a, exp, the fused update (2), B and C
-    # products, the N-sum: 6 f32 flops and one exponential
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(6 * b * s * di * n / FP32_FLOP_PER_S,
-                b * s * di * n / SFU_PER_S) * 1e3
-    return dict(name="mamba_scan", max_abs_err=worst,
-                shape=f"B={b} S={s} Di={di} N={n} x bf16, f32 state",
-                ms=kms, plain_ms=pms, library_ms=None, library=None,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+    timed = {}
+    for b, s in ((1, PROMPT_HI), (1, 64)):
+        nbytes = (b * s * di * (4 + 2 + 4) + 2 * b * s * n * 4 + di * n * 4
+                  + di * 4 + b * di * n * 4)
+        sets = [make(b, s) for _ in range(copies(nbytes))]
+        kms = device_ms([lambda t=t: mamba_scan(*t) for t in sets])
+        pms = device_ms([lambda t=t: ref.mamba_scan_ref(*t) for t in sets],
+                        reps=3, per_window=2)
+        # per state and step: dt*a, exp, the fused update (2), B and C
+        # products, the N-sum: 6 f32 flops and one exponential; the
+        # exponentials are the operation count that binds
+        exps = b * s * di * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(6 * exps / FP32_FLOP_PER_S, exps / SFU_PER_S) * 1e3
+        timed[s] = dict(shape=f"B={b} S={s} Di={di} N={n} x bf16, f32 "
+                              f"state",
+                        ms=kms, plain_ms=pms, library_ms=None,
+                        library=None,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations",
+                        bound_bytes=nbytes, bound_flops=exps,
+                        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+    return dict(name="mamba_scan", max_abs_err=worst, **timed[PROMPT_HI],
+                at_s64=timed[64])
 
 
 def phase_kernels(dev) -> dict:

@@ -11,48 +11,183 @@
 //
 // Bound on the H100: at the prefill shapes (B 1, S up to a few hundred,
 // Di 8192, N 16) each input is read once and y written once, about 17 MB
-// at S = 200 (5 us at 3.35 TB/s), while the S * Di * N exponentials take
-// about 6 us at the special-function units' 16 results per clock per SM.
-// So the exponentials bind, by a little; the remaining f32 work (about
-// six flops per state and step) is a third of either.
+// at S = 200 (5.2 us at 3.35 TB/s), while the S * Di * N exponentials take
+// 6.3 us at the special-function units' 16 results per clock per SM. So
+// the exponentials bind, by a little. Per state and step the rest is four
+// f32 instructions (dt * A, dt x * B, the update and the h * C product)
+// and the two shared-memory words B_t[n] and C_t[n], which cost the SM
+// about as many cycles as the exponential does.
 //
-// Design: one thread per (batch row, channel, state), so with N = 16 a
-// warp holds two channels and a block of 128 threads eight; the grid is
-// (Di / channels per block, B), 1,024 blocks at B 1 and Di 8192, enough to
-// fill all 132 SMs. Each thread keeps its state h, A[i, n] and D[i] in
-// registers for the whole sequence. The sequence is walked in runs of 64
-// steps: the block stages the run's dt and x for its channels and B_t, C_t
-// in shared memory with coalesced loads (x converted to f32 on the way in,
-// so the model's bf16 activations need no cast), then steps through the run
-// with the state in registers. The N-sum of y_t is a butterfly of
-// __shfl_xor_sync inside each group of N lanes; the group's first lane
-// parks y_t in shared memory, and the run's outputs leave in one coalesced
-// pass. exp is the accurate expf, so the kernel stays within f32 rounding
-// of the plain version. N is a template parameter: 4, 8 or 16.
+// Mamba-1's A is (Di, N): every (channel, state) pair decays at its own
+// rate, so the scan has no one-scalar-per-head decay to turn into a chunked
+// matrix form on the tensor cores (that is Mamba-2's SSD); it stays on the
+// CUDA cores.
+//
+// Design: a thread owns K = 4 consecutive states of one channel, so
+// G = N / K lanes hold a channel; a block holds 32 channels (32 * G
+// threads) and the grid is (Di / 32, B). The thread keeps its K states,
+// A * log2(e) and D in registers for the whole sequence, so dt and x are
+// read once per channel and step, not once per state, and B_t and C_t
+// come in one 16-byte shared-memory load each. Each step's decay is one
+// ex2.approx.ftz of dt * (A * log2 e).
+// Steps go in groups of 8, unrolled: the 8K decays and inputs dt x B of a
+// group depend on no state, so they are all issued first and the
+// special-function units see independent work; only then runs the chain
+// h = da * h + bu, one FMA a step, and the h * C products. The group's 8
+// partial y sums (D * x folded into one lane's) are reduced across the G
+// lanes by a reduce-scatter of log2(G) shuffle rounds that halves the
+// values each round, 8 - 8 / G shuffles a group instead of 8 log2(G), and
+// leaves each lane the full y of 8 / G steps, which it parks in a
+// shared-memory tile (rows padded to 36 floats: conflict-free for every G);
+// the run's y rows then leave the tile in coalesced 16-byte stores.
+// The sequence is staged 32 steps at a time (a run) in three buffers with
+// 16-byte cp.async copies (dt and y rows of 128 bytes, x rows of 64 bytes
+// in bf16): run r + 2 is staged while run r computes, into the buffer run
+// r - 1 read. Each thread's share of a run's chunks is the same in every
+// run, so their offsets and source pointers are worked out once. Steps
+// past S and channels past Di are staged as zeros (decay 1, input 0), so
+// groups never need a tail case. An operand whose pointer or strides are
+// not 16-byte aligned is staged element by element instead; the model's
+// operands are all aligned.
+//
+// K = 4 (at most N for every N the kernel takes), chosen on the H100 at
+// B 1, Di 8192, N 16 against K 2 and K 8 (PERF.md): K 8 leaves one warp
+// per SM sub-partition and was the slowest at S 200 and S 64; K 2 doubles
+// the warps but also the per-state loads of dt and x and the shuffles,
+// and was level with K 4 at S 200 and slower at S 64. With two warps per
+// sub-partition at K 4, the exponentials, the B and C reads and the issue
+// slots each need about half the time the kernel takes, and two warps do
+// not overlap them fully: the kernel runs at about three times its bound.
+// Pipelining the next group's exponentials into this group's chain,
+// staging from a producer warp, runs fed by TMA, 64-step runs and writing
+// y straight from registers were each tried on the H100, and none was
+// faster.
 //
 // C entry point: mamba_scan_launch(dt, a, b, c, d, x, h0, y, h_last, B, S,
-// Di, N, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, x_dtype, stream):
-// dt, b, c and x are read by their (batch, step) element strides with unit
-// stride on the last axis; a (Di, N), d (Di,), h0 (B, Di, N) (or null for a
-// zero state), y (B, S, Di) and h_last (B, Di, N) are contiguous float32;
-// x_dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// Di, N, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, x_dtype,
+// stream): dt, b, c and x are read by their (batch, step) element strides
+// with unit stride on the last axis; a (Di, N), d (Di,), h0 (B, Di, N) (or
+// null for a zero state), y (B, S, Di) and h_last (B, Di, N) are contiguous
+// float32; N 4, 8 or 16; x_dtype 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSteps = 64;   // steps staged in shared memory per run
+constexpr int kCh = 32;       // channels per block
+constexpr int kRun = 32;      // steps staged per buffer
+constexpr int kGroup = 8;     // steps unrolled together
+constexpr int kStates = 4;    // states a thread carries (K)
+// staging buffers: runs r, r + 1 and r + 2; run r + 2 is staged while
+// run r computes, into the buffer run r - 1 read
+constexpr int kBufs = 3;
+constexpr int kYPitch = kCh + 4;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// 16-byte copy of which the first `bytes` come from src and the rest are
+// zero-filled (bytes 0: all zeros, src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {  // all but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One operand's share of a run's staging for one thread. A run is kRun
+// rows of CPR 16-byte chunks (W elements a row in shared memory); the
+// thread owns chunks tid + j * NT, the same ones in every run, so their
+// step, shared-memory offset, source pointer and width are worked out
+// once, and each run only moves the pointers on by kRun steps. Elements
+// at or past `n` in a row and rows at or past S are zero-filled. vec: the
+// source chunks are 16-byte aligned (cp.async), else element copies.
+template <typename T, int CPR, int W, int NT>
+struct Stager {
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));
+  static constexpr int TOTAL = kRun * CPR;
+  static constexpr int J = (TOTAL + NT - 1) / NT;
+  const T* base;    // step 0, element 0 of the row: a harmless address
+  const T* src[J];
+  int tt[J];    // step within the run; kRun for a slot past the run
+  int off[J];   // element offset in the run's buffer
+  int m[J];     // elements of the chunk inside the row
+  long long step;   // elements between runs
+
+  __device__ __forceinline__ Stager(const T* row, long long ss, int e_lo,
+                                    int n, int tid)
+      : base(row), step(kRun * ss) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = tid + j * NT;
+      const int c = e % CPR;
+      tt[j] = e < TOTAL ? e / CPR : kRun;
+      off[j] = (e / CPR) * W + c * E;
+      m[j] = min(max(n - (e_lo + c * E), 0), E);
+      src[j] = row + (e < TOTAL ? (e / CPR) * ss : 0) + e_lo + c * E;
+    }
+  }
+
+  // run starting at step t0 into buf; call once per run, in order
+  __device__ __forceinline__ void issue(T* buf, int t0, int S, bool vec) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (tt[j] < kRun) {
+        const int mm = t0 + tt[j] < S ? m[j] : 0;
+        if (vec) {
+          cp_async16(buf + off[j], mm > 0 ? src[j] : base,
+                     mm * static_cast<int>(sizeof(T)));
+        } else {
+#pragma unroll
+          for (int u = 0; u < E; ++u)
+            buf[off[j] + u] = u < mm ? src[j][u] : T(0.f);
+        }
+      }
+      src[j] += step;
+    }
+  }
+};
+
+// K consecutive floats of shared memory (16-byte aligned) into registers
+__device__ __forceinline__ void load_k(float (&v)[kStates],
+                                       const float* src) {
+  const float4 q = *reinterpret_cast<const float4*>(src);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
 template <int N, typename TX>
-__global__ void __launch_bounds__(kThreads)
+struct Smem {
+  float dt[kBufs][kRun][kCh];
+  TX x[kBufs][kRun][kCh];
+  float b[kBufs][kRun][N];
+  float c[kBufs][kRun][N];
+  float y[kRun][kYPitch];
+};
+
+template <int N, typename TX>
+__global__ void __launch_bounds__(kCh * N / kStates)
 mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
                   const float* __restrict__ bm, const float* __restrict__ cm,
                   const float* __restrict__ dvec, const TX* __restrict__ x,
@@ -60,26 +195,34 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
                   float* __restrict__ h_last, int S, int Di, long long dt_sb,
                   long long dt_ss, long long b_sb, long long b_ss,
                   long long c_sb, long long c_ss, long long x_sb,
-                  long long x_ss) {
-  constexpr int CH = kThreads / N;   // channels per block
-  __shared__ float dt_s[kSteps][CH];
-  __shared__ float x_s[kSteps][CH];
-  __shared__ float y_s[kSteps][CH];
-  __shared__ float b_s[kSteps][N];
-  __shared__ float c_s[kSteps][N];
+                  long long x_ss, unsigned vec) {
+  constexpr int K = kStates;
+  constexpr int G = N / K;                 // lanes per channel
+  constexpr int NT = kCh * G;              // threads per block
+  constexpr int U = kGroup;                // steps a group
+  static_assert(K <= N && N % K == 0 && U % G == 0 && kRun % U == 0,
+                "K, N and the group");
+  constexpr int XE = 16 / static_cast<int>(sizeof(TX));
+  __shared__ __align__(16) Smem<N, TX> sm;
 
   const int tid = threadIdx.x;
-  const int ch = tid / N;
-  const int n = tid % N;
+  const int cl = tid / G;                  // channel within the block
+  const int gl = tid % G;                  // lane within the channel
   const int row = blockIdx.y;
-  const int i0 = blockIdx.x * CH;
-  const int i = i0 + ch;
+  const int i0 = blockIdx.x * kCh;
+  const int i = i0 + cl;
   const bool live = i < Di;
-  const long long state = (static_cast<long long>(row) * Di + i) * N + n;
+  const long long state0 =
+      (static_cast<long long>(row) * Di + i) * N + gl * K;
 
-  const float a_in = live ? a[static_cast<long long>(i) * N + n] : 0.f;
+  float a2[K], h[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a2[k] = live ? a[static_cast<long long>(i) * N + gl * K + k] * kLog2e
+                 : 0.f;
+    h[k] = (live && h0 != nullptr) ? h0[state0 + k] : 0.f;
+  }
   const float d_i = live ? dvec[i] : 0.f;
-  float h = (live && h0 != nullptr) ? h0[state] : 0.f;
 
   const float* dt_r = dt + row * dt_sb;
   const float* b_r = bm + row * b_sb;
@@ -87,45 +230,97 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
   const TX* x_r = x + row * x_sb;
   float* y_r = y + static_cast<long long>(row) * S * Di;
 
-  for (int t0 = 0; t0 < S; t0 += kSteps) {
-    const int T = min(kSteps, S - t0);
-    for (int e = tid; e < T * CH; e += kThreads) {
-      const int tt = e / CH;
-      const int ii = i0 + e % CH;
-      const long long t = t0 + tt;
-      const bool ok = ii < Di;
-      dt_s[tt][e % CH] = ok ? dt_r[t * dt_ss + ii] : 0.f;
-      x_s[tt][e % CH] = ok ? to_f(x_r[t * x_ss + ii]) : 0.f;
-    }
-    for (int e = tid; e < T * N; e += kThreads) {
-      const long long t = t0 + e / N;
-      b_s[e / N][e % N] = b_r[t * b_ss + e % N];
-      c_s[e / N][e % N] = c_r[t * c_ss + e % N];
-    }
-    __syncthreads();
-    for (int tt = 0; tt < T; ++tt) {
-      const float dv = dt_s[tt][ch];
-      const float xv = x_s[tt][ch];
-      h = expf(dv * a_in) * h + (dv * xv) * b_s[tt][n];
-      float p = h * c_s[tt][n];
+  Stager<float, kCh / 4, kCh, NT> st_dt(dt_r, dt_ss, i0, Di, tid);
+  Stager<TX, kCh / XE, kCh, NT> st_x(x_r, x_ss, i0, Di, tid);
+  Stager<float, N / 4, N, NT> st_b(b_r, b_ss, 0, N, tid);
+  Stager<float, N / 4, N, NT> st_c(c_r, c_ss, 0, N, tid);
+  auto stage = [&](int r, int buf) {
+    st_dt.issue(&sm.dt[buf][0][0], r * kRun, S, vec & 1u);
+    st_x.issue(&sm.x[buf][0][0], r * kRun, S, vec & 2u);
+    st_b.issue(&sm.b[buf][0][0], r * kRun, S, vec & 4u);
+    st_c.issue(&sm.c[buf][0][0], r * kRun, S, vec & 8u);
+  };
+
+  const int runs = (S + kRun - 1) / kRun;
+  stage(0, 0);
+  cp_async_commit();
+  if (runs > 1) stage(1, 1);
+  cp_async_commit();
+  for (int r = 0; r < runs; ++r) {
+    const int buf = r % kBufs;
+    cp_async_wait1();   // this thread's copies of run r landed
+    __syncthreads();    // ... and every other thread's; run r - 1 is done
+    if (r + 2 < runs) stage(r + 2, (r + 2) % kBufs);
+    cp_async_commit();
+    const int T = min(kRun, S - r * kRun);
+    for (int g0 = 0; g0 < T; g0 += U) {
+      float dtv[U], dtx[U], p[U], da[U][K], bu[U][K];
+      // everything that does not depend on h: dt, x, the decays and inputs
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1)
-        p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (n == 0) y_s[tt][ch] = p + d_i * xv;
+      for (int u = 0; u < U; ++u) {
+        dtv[u] = sm.dt[buf][g0 + u][cl];
+        const float xv = to_f(sm.x[buf][g0 + u][cl]);
+        dtx[u] = dtv[u] * xv;
+        p[u] = gl == 0 ? d_i * xv : 0.f;
+        float bk[K];
+        load_k(bk, &sm.b[buf][g0 + u][gl * K]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          da[u][k] = ex2(dtv[u] * a2[k]);
+          bu[u][k] = dtx[u] * bk[k];
+        }
+      }
+      // the recurrence: one FMA a state and step, then h . C
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float ck[K];
+        load_k(ck, &sm.c[buf][g0 + u][gl * K]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          h[k] = fmaf(da[u][k], h[k], bu[u][k]);
+          p[u] = fmaf(h[k], ck[k], p[u]);
+        }
+      }
+      // reduce-scatter the U partial sums over the G lanes of the channel:
+      // each round a lane keeps one half of its values, adds its
+      // partner's copy of that half, and ends with U / G full sums
+      int base = 0;
+#pragma unroll
+      for (int o = G / 2, half = U / 2; o >= 1; o >>= 1, half >>= 1) {
+        const bool hi = (gl & o) != 0;
+#pragma unroll
+        for (int j = 0; j < half; ++j) {
+          const float send = hi ? p[j] : p[j + half];
+          const float keep = hi ? p[j + half] : p[j];
+          p[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+        base += hi ? half : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < U / G; ++j) sm.y[g0 + base + j][cl] = p[j];
     }
     __syncthreads();
-    for (int e = tid; e < T * CH; e += kThreads) {
-      const int ii = i0 + e % CH;
-      if (ii < Di) {
-        y_r[static_cast<long long>(t0 + e / CH) * Di + ii] =
-            y_s[e / CH][e % CH];
+    // the run's y rows, 16 bytes a thread where the rows allow it
+    constexpr int YC = kCh / 4;
+    const bool y_vec = Di % 4 == 0;
+    for (int e = tid; e < T * YC; e += NT) {
+      const int tt = e / YC, c = e % YC, ch = i0 + c * 4;
+      float* dst = y_r + static_cast<long long>(r * kRun + tt) * Di + ch;
+      const float* src = &sm.y[tt][c * 4];
+      if (y_vec && ch + 4 <= Di) {
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (ch + u < Di) dst[u] = src[u];
       }
     }
-    // the next run's staging overwrites only dt_s, x_s, b_s and c_s, which
-    // every thread finished reading before the barrier above; y_s is
-    // rewritten only after the next barrier
   }
-  if (live) h_last[state] = h;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) h_last[state0 + k] = h[k];
+  }
 }
 
 template <int N, typename TX>
@@ -135,23 +330,31 @@ cudaError_t launch_n(const void* dt, const void* a, const void* b,
                      int Di, long long dt_sb, long long dt_ss, long long b_sb,
                      long long b_ss, long long c_sb, long long c_ss,
                      long long x_sb, long long x_ss, cudaStream_t stream) {
-  constexpr int CH = kThreads / N;
-  const dim3 grid((Di + CH - 1) / CH, B);
-  mamba_scan_kernel<N, TX><<<grid, kThreads, 0, stream>>>(
+  constexpr long long XE = 16 / sizeof(TX);
+  auto aligned = [](const void* p, long long sb, long long ss, long long e) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % e == 0
+        && ss % e == 0;
+  };
+  const unsigned vec = (aligned(dt, dt_sb, dt_ss, 4) ? 1u : 0u)
+                     | (aligned(x, x_sb, x_ss, XE) ? 2u : 0u)
+                     | (aligned(b, b_sb, b_ss, 4) ? 4u : 0u)
+                     | (aligned(c, c_sb, c_ss, 4) ? 8u : 0u);
+  const dim3 grid((Di + kCh - 1) / kCh, B);
+  mamba_scan_kernel<N, TX><<<grid, kCh * N / kStates, 0, stream>>>(
       static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<const float*>(d), static_cast<const TX*>(x),
       static_cast<const float*>(h0), static_cast<float*>(y),
       static_cast<float*>(h_last), S, Di, dt_sb, dt_ss, b_sb, b_ss, c_sb,
-      c_ss, x_sb, x_ss);
+      c_ss, x_sb, x_ss, vec);
   return cudaGetLastError();
 }
 
 template <typename TX>
-cudaError_t launch(const void* dt, const void* a, const void* b,
-                   const void* c, const void* d, const void* x,
-                   const void* h0, void* y, void* h_last, int B, int S,
-                   int Di, int N, long long dt_sb, long long dt_ss,
+cudaError_t launch(int N, const void* dt, const void* a,
+                   const void* b, const void* c, const void* d,
+                   const void* x, const void* h0, void* y, void* h_last,
+                   int B, int S, int Di, long long dt_sb, long long dt_ss,
                    long long b_sb, long long b_ss, long long c_sb,
                    long long c_ss, long long x_sb, long long x_ss,
                    cudaStream_t stream) {
@@ -186,11 +389,11 @@ extern "C" int mamba_scan_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == 0) {
-    err = launch<float>(dt, a, b, c, d, x, h0, y, h_last, B, S, Di, N,
+    err = launch<float>(N, dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
                         dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, s);
   } else if (x_dtype == 1) {
-    err = launch<__nv_bfloat16>(dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
-                                N, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
+    err = launch<__nv_bfloat16>(N, dt, a, b, c, d, x, h0, y, h_last, B,
+                                S, Di, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
                                 x_sb, x_ss, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

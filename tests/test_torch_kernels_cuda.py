@@ -53,10 +53,21 @@ def cuda():
     return torch.device("cuda")
 
 
+# blocks a row is split over (kCluster in csrc/top2gap.cu)
+_CLUSTER = 16
+
+
 @pytest.mark.parametrize("b,v", [(1, 151936), (8, 151936), (3, 4097),
-                                 (5, 2)])
+                                 (5, 2), (1, 3), (8, 17), (1, 4097),
+                                 (8, 65024), (2, 32767), (2, 32769),
+                                 (2, 65535), (2, 65537), (1, 262143),
+                                 (1, 262145)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_top2gap_kernel_matches_plain(cuda, b, v, dtype):
+    """V from 2 (most cluster slices empty) to the qwen2 vocab; one short
+    of and one past G x 4,096 elements (slices of 1,024 f32 vectors a
+    block) and G x 16,384 (one full round of 8 f32 loads a thread); rows
+    after the first have no planted tie."""
     x = torch.from_numpy(_rand(v, (b, v), 3.0)).to(cuda, dtype)
     top = x[0].max() + 1.0
     x[0, v - 1] = top                            # planted exact tie ...
@@ -70,14 +81,76 @@ def test_top2gap_kernel_matches_plain(cuda, b, v, dtype):
     assert int(idx[0]) == min(7, v - 2) and float(gap[0]) == 0.0
 
 
-def test_top2gap_kernel_strided_rows(cuda):
-    """Rows of a wider buffer (row stride != V) and an unaligned start
-    take the scalar path and still agree."""
-    buf = torch.from_numpy(_rand(3, (4, 1001))).to(cuda)
-    for x in (buf[:, :999], buf[:, 1:]):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [(4, 1001), (3, 151939)])
+def test_top2gap_kernel_strided_rows(cuda, dtype, rows, width):
+    """Rows of a wider buffer (row stride != V) and an unaligned start,
+    random with no planted tie: the unaligned heads and tails go through
+    the first and the last rank and still agree bit for bit."""
+    buf = torch.from_numpy(_rand(3, (rows, width))).to(cuda, dtype)
+    for x in (buf[:, :width - 2], buf[:, 1:], buf[:, 3:width - 5]):
         gap, idx = top2gap(x)
         rgap, ridx = tref.top2gap_ref(x)
         assert torch.equal(idx, ridx) and torch.equal(gap, rgap)
+
+
+def _slices(first: int, v: int, g: int, e: int):
+    """The kernel's split of a row whose first element sits ``first``
+    elements past a 16-byte boundary: (lo, hi) index ranges of the head,
+    of each of the g ranks' vector slices, and of the tail."""
+    mis = first % e
+    head = min(v, e - mis if mis else 0)
+    nvec = (v - head) // e
+    per = -(-nvec // g)
+    out = [(0, head)]
+    for r in range(g):
+        v0 = min(nvec, r * per)
+        v1 = min(nvec, v0 + per)
+        out.append((head + v0 * e, head + v1 * e))
+    out.append((head + nvec * e, v))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v,width,offset", [
+    (8, 151936, 151936, 0), (1, 151936, 151939, 3), (8, 65024, 65031, 1),
+    (8, 4097, 4101, 2), (3, 37, 43, 5), (8, 1000, 1000, 0)])
+def test_top2gap_kernel_ties_at_slice_edges(cuda, dtype, b, v, width,
+                                            offset):
+    """Exact top-1 ties planted on the first and last element of every
+    cluster slice at once, across neighbouring ranks, between the first
+    and the last rank, and in the unaligned head and tail of rows of a
+    wider buffer (row stride ``width``, start ``offset``): gap 0 and the
+    lowest index, bit-equal to the plain version. Two more rows have no
+    tie: one left random, and one whose top-1 is the row's last element
+    and whose top-2, half a unit lower, its first (the tail's and the
+    head's rank, or the first and last slice of an aligned row)."""
+    e = 16 // (4 if dtype == torch.float32 else 2)
+    buf = torch.from_numpy(_rand(v + b, (b + 2, width), 3.0)).to(cuda,
+                                                                  dtype)
+    x = buf[:, offset:offset + v]
+    want = []
+    for row in range(b):
+        parts = [(lo, hi) for lo, hi in _slices(row * width + offset, v,
+                                                _CLUSTER, e) if hi > lo]
+        if row % 3 == 2:     # both ends of every part
+            at = [i for lo, hi in parts for i in (lo, hi - 1)]
+        elif row % 3 == 1:   # the first and the last part
+            at = [parts[0][0], parts[-1][1] - 1]
+        else:                # last of one part, first of the next
+            k = row % len(parts)
+            at = [parts[k][1] - 1, parts[(k + 1) % len(parts)][0]]
+        x[row, at] = x[row].max() + 1.0
+        want.append(min(at))
+    top = x[b + 1].max() + 1.0
+    x[b + 1, 0] = top - 0.5
+    x[b + 1, v - 1] = top
+    gap, idx = top2gap(x)
+    rgap, ridx = tref.top2gap_ref(x)
+    assert torch.equal(idx, ridx) and torch.equal(gap, rgap)
+    assert idx[:b].tolist() == want
+    assert all(g_ == 0.0 for g_ in gap[:b].tolist())
+    assert int(idx[b + 1]) == v - 1 and float(gap[b + 1]) == 0.5
 
 
 # the last case is f32 activations over the engine's bf16 slot pool: the
@@ -310,15 +383,18 @@ def test_reference_mode_reduces_through_the_kernel(cuda):
 
 @pytest.mark.parametrize("n", [4, 8, 16])
 @pytest.mark.parametrize("b,s,di", [(1, 200, 512), (2, 33, 70), (1, 1, 64),
-                                    (2, 130, 256)])
+                                    (2, 130, 256), (1, 31, 31), (2, 32, 33),
+                                    (1, 33, 64), (1, 65, 96), (2, 64, 8192)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_mamba_scan_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
                                          with_h0):
-    """y and h_last against the plain scan on the same card inputs: S
-    below, across and not a multiple of the kernel's 64-step runs, Di not
-    a multiple of a block's channels, x in f32 and bf16, a zero and a
-    nonzero initial state."""
+    """y and h_last against the plain scan on the same card inputs, at
+    every N (4 states a thread: 1, 2 or 4 lanes a channel): S below, at,
+    one past and two runs past the kernel's 32-step runs (and not a
+    multiple of its 8-step groups), Di one short of and one past a block's
+    32 channels and not a multiple of 4 or 8, x in f32 and bf16, a zero
+    and a nonzero initial state."""
     f = lambda seed, shape, scale=1.0: torch.from_numpy(  # noqa: E731
         _rand(seed, shape, scale)).to(cuda)
     dt = torch.nn.functional.softplus(f(1, (b, s, di), 0.5) - 3.0)
@@ -330,6 +406,27 @@ def test_mamba_scan_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
     before = mamba_scan.launches
     y, h = mamba_scan(dt, a, bm, cm, d, x, h0)
     assert mamba_scan.launches == before + 1
+    ry, rh = tref.mamba_scan_ref(dt, a, bm, cm, d, x, h0)
+    torch.testing.assert_close(y, ry, atol=2e-4, rtol=0)
+    torch.testing.assert_close(h, rh, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_unaligned_operands(cuda, x_dtype):
+    """Operands whose rows are not 16-byte aligned take the element-wise
+    staging: dt and x as views of wider buffers at odd offsets and odd
+    step strides, B and C as column slices at an odd offset."""
+    b, s, di, n, r = 2, 45, 96, 16, 7
+    f = lambda seed, shape: torch.from_numpy(  # noqa: E731
+        _rand(seed, shape)).to(cuda)
+    dt = f(1, (b, s, di + 3)).abs().mul_(0.05)[..., 1:di + 1]
+    x = f(2, (b, s, di + 5)).to(x_dtype)[..., 3:di + 3]
+    dbc = f(3, (b, s, r + 2 * n))
+    bm, cm = dbc[..., r:r + n], dbc[..., r + n:]
+    a = -torch.exp(f(4, (di, n)) * 0.5)
+    d = f(5, (di,))
+    h0 = f(6, (b, di, n))
+    y, h = mamba_scan(dt, a, bm, cm, d, x, h0)
     ry, rh = tref.mamba_scan_ref(dt, a, bm, cm, d, x, h0)
     torch.testing.assert_close(y, ry, atol=2e-4, rtol=0)
     torch.testing.assert_close(h, rh, atol=2e-4, rtol=0)
