@@ -14,7 +14,8 @@ non-zero exit code and no ``ok`` line:
              each kernel entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving paths' shapes (top2gap bit-exact with
-             planted ties; bf16 attention within 2e-2 of the f32 plain
+             planted ties, also at the classifier's B 64, V 2; bf16
+             attention within 2e-2 of the f32 plain
              version; the selective scan within 2e-4, f32 throughout) and
              times kernel, plain version and the PyTorch library call that
              computes the same function where one exists (a yardstick the
@@ -51,12 +52,28 @@ non-zero exit code and no ``ok`` line:
              tokens against a teacher-forced ``forward``, and a profiler
              window ends the phase. Prefill time per prompt length and the
              peak device memory are printed.
+6. serve_tiny — the paper's one-shot classifier lifecycle through
+             ``repro_torch.launch.serve``'s own functions: the tiny family
+             (five transformers, d 16-96) trains on the card, every member
+             is profiled through the ``EngineBackend`` that serves it, the
+             gear planner plans for 2 logical devices sharing the card, and
+             the threaded ``CascadeServer`` serves an azure-like trace at
+             60 qps (``--real --devices 2 --trace-seconds 8 --qps-max 60
+             --slo latency:0.3``). The launch counters are zeroed just
+             before that run and read just after: top2gap must launch once
+             per executed batch, every arrival must be done or still
+             queued, at least 95 % done, and every done request must obey
+             cascade semantics against the certainties the kernel gave it.
+             The same plan and trace on the discrete-event simulator, a
+             profiled repeat (device busy and idle share) and a real run at
+             the reference's default 2000 qps (numbers only) follow.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -65,6 +82,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -112,6 +130,10 @@ SSM_ARCH = "falcon-mamba-7b"
 N_SLOTS, MAX_LEN, SPEC_K = 8, 512, 4
 N_REQ, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 16, 200
 MIN_TOKENS, EARLY_MARGIN = 4, 0.5
+# the one-shot classifier path: the verify recipe's healthy setting
+TINY_DEVICES, TINY_TRACE_S, TINY_QPS, TINY_SLO = 2, 8, 60.0, "latency:0.3"
+TINY_QPS_STRESS = 2000.0      # the reference's default --qps-max
+TINY_BATCH = 64               # top2gap row timed at the classifier shape
 
 
 def emit(obj) -> None:
@@ -275,9 +297,22 @@ def kernel_top2gap(dev) -> dict:
                   "top2gap three-way tie -> gap 0, lowest index")
         worst = max(worst, float((gap - rgap).abs().max()))
         timed[b, v] = _time_top2gap(x)
+    # the classifier path's shape: (B, 2) f32 scores, ties in row 0 and
+    # in the last row
+    x = torch.randn(TINY_BATCH, 2, generator=_gen(2), device=dev)
+    x[0, 1] = x[0, 0]
+    x[TINY_BATCH - 1, 0] = x[TINY_BATCH - 1, 1]
+    rgap, ridx = ref.top2gap_ref(x)
+    gap, idx = top2gap(x)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, ridx) and torch.equal(gap, rgap),
+          f"top2gap bit-equal at B={TINY_BATCH}, V=2")
+    check(int(idx[0]) == 0 and float(gap[0]) == 0.0,
+          "top2gap V=2 tie -> gap 0, index 0")
+    timed[TINY_BATCH, 2] = _time_top2gap(x)
     return dict(name="top2gap", max_abs_err=worst, **timed[8, 151936],
                 at_v65024=timed[8, 65024], at_b1=timed[1, 151936],
-                at_v4096=timed[8, 4096])
+                at_v4096=timed[8, 4096], at_b64_v2=timed[TINY_BATCH, 2])
 
 
 def kernel_decode(dev) -> dict:
@@ -838,6 +873,216 @@ def _teacher_forced_check(params, cfg, reqs, out, phase: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the one-shot classifier cascade (train, profile, plan, serve)
+# ---------------------------------------------------------------------------
+
+class _Recording:
+    """The serve path's backend, with every ``execute`` recorded: how many
+    batches ran, and each (request, model)'s certainty and prediction as
+    the kernel gave them. Everything else is the backend's own."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.batches = 0
+        self.seen = {}
+        self.elapsed = {}
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def execute(self, model, sids, tokens=None):
+        ex = self.inner.execute(model, sids, tokens=tokens)
+        with self._lock:
+            self.batches += 1
+            self.elapsed.setdefault(model, []).append(ex.elapsed)
+            for s, c, p in zip(sids, ex.certs, ex.preds):
+                self.seen[s, model] = (float(c), int(p))
+        return ex
+
+
+def _cascade_violations(done, seen) -> list:
+    """Requests that break cascade semantics: resolved at stage i exactly
+    when the certainty the kernel gave it at stage i is at least the
+    gear's threshold there (and below it at every earlier stage), the last
+    stage always answering; the request carries that certainty and
+    prediction."""
+    bad = []
+    for r in done:
+        casc = r.gear.cascade
+        ok = 0 <= r.resolver < len(casc.models)
+        for i in range(r.resolver + 1 if ok else 0):
+            c, p = seen.get((r.rid, casc.models[i]), (None, None))
+            if c is None:
+                ok = False
+            elif i < r.resolver:
+                ok = ok and c < casc.thresholds[i]
+            else:
+                ok = ok and (i == len(casc.thresholds)
+                             or c >= casc.thresholds[i])
+                ok = ok and r.cert == c and r.pred == p
+        if not ok:
+            bad.append(r.rid)
+    return bad
+
+
+def _real_run(S, plan, backend, trace, qps: float, phase: str,
+              profile: bool = False):
+    """One threaded wall-clock run through ``serve.serve_real`` over a
+    recording backend; with ``profile``, under torch.profiler (device busy
+    and idle share). Launch counters are zeroed just before and read just
+    after. Returns (summary, completed requests, recording backend)."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.core.scheduling import DecisionTrace
+    rec = _Recording(backend)
+    tr = DecisionTrace()
+    window = torch.profiler.profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profile else contextlib.nullcontext()
+    with window as prof:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        server, done, labels, offered = S.serve_real(plan, rec, trace,
+                                                     decision_trace=tr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+    out = {"phase": phase, "qps_max": qps, "trace_seconds": TINY_TRACE_S,
+           "devices": TINY_DEVICES, "offered": offered, "done": len(done),
+           "queued_at_end": sum(len(q) for q in server.queues),
+           "gear_switches": len(server.gear_switches),
+           "executed_batches": rec.batches, "fires": len(tr.fires),
+           "launches": launches, "wall_s": wall,
+           "batch_ms_median": {m: statistics.median(v) * 1e3
+                               for m, v in sorted(rec.elapsed.items())},
+           "batches_by_model": {m: len(v)
+                                for m, v in sorted(rec.elapsed.items())},
+           "plan_accuracy_served_gears": float(np.mean(
+               [r.gear.expected_accuracy for r in done])) if done else None,
+           **(S.summarize(done, labels) if done else {})}
+    if profile:
+        from torch.autograd import DeviceType
+        kernels = []
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                t_us = getattr(e, "self_device_time_total", None)
+                kernels.append((e.self_cuda_time_total if t_us is None
+                                else t_us, e.count, e.key))
+        kernels.sort(reverse=True)
+        busy_s = sum(k[0] for k in kernels) / 1e6
+        out.update(device_busy_s=busy_s,
+                   kernels=sum(k[1] for k in kernels),
+                   idle_share=1.0 - busy_s / wall,
+                   top=[{"ms": t / 1e3, "launches": c, "kernel": name[:90]}
+                        for t, c, name in kernels[:8]])
+    return out, done, rec
+
+
+def _des_run(S, plan, profiles, trace, qps: float) -> dict:
+    """The same plan and trace on the discrete-event simulator."""
+    res = S.serve_des(plan, profiles, trace)
+    out = {"phase": "serve_tiny_des", "qps_max": qps, "done": res.completed,
+           "offered": res.offered, "p95_ms": res.p95 * 1e3,
+           "accuracy": res.accuracy, "utilization": res.utilization,
+           "gear_switches": len(res.gear_switches)}
+    emit(out)
+    return out
+
+
+def phase_serve_tiny(dev) -> dict:
+    """The paper's Fig. 3 lifecycle on the card through
+    ``repro_torch.launch.serve``'s own functions. Returns the launch
+    counts of the checked 60-qps run."""
+    from repro_torch.core.plan_state import HardwareSpec
+    from repro_torch.core.planner import optimize_gear_plan
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import tinymodels as TY
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = TY.train_tiny_family(device=dev)
+    torch.cuda.synchronize()
+    params_by, scores_by, _, lab_va = trained
+    emit({"phase": "serve_tiny_train",
+          "seconds": time.perf_counter() - t0,
+          "steps": {c.name: int(TY._FAMILY_STEPS[i])
+                    for i, c in enumerate(TY.TINY_FAMILY)},
+          "val_accuracy": {n: float((s.argmax(-1) == lab_va).mean())
+                           for n, s in scores_by.items()}})
+    check(all(np.isfinite(s).all() for s in scores_by.values()),
+          "validation scores finite")
+
+    t0 = time.perf_counter()
+    backend = TY.make_engine_backend(*trained)
+    profiles = backend.profiles
+    emit({"phase": "serve_tiny_profile",
+          "seconds": time.perf_counter() - t0,
+          "runtime_ms": {n: dict(zip((int(b) for b in p.batch_sizes),
+                                     (float(r) * 1e3
+                                      for r in p.batch_runtimes)))
+                         for n, p in profiles.items()},
+          "mem_bytes": {n: p.mem_bytes for n, p in profiles.items()},
+          "accuracy": {n: p.accuracy for n, p in profiles.items()}})
+    check(all(np.all(p.batch_runtimes > 0) for p in profiles.values()),
+          "profiled runtimes positive")
+
+    mem_name, mem = S.device_memory(dev)
+    hw = HardwareSpec(num_devices=TINY_DEVICES,
+                      mem_per_device=mem / TINY_DEVICES)
+    slo = S.parse_slo(TINY_SLO)
+
+    def plan_for(qps):
+        report = optimize_gear_plan(profiles, hw, slo, qps_max=qps,
+                                    n_ranges=8)
+        emit({"phase": "serve_tiny_plan", "qps_max": qps,
+              "seconds": report.wall_seconds, "memory": mem_name,
+              "mem_per_device": hw.mem_per_device,
+              "ranges": [{"qps_to": report.plan.range_width * (r + 1),
+                          "cascade": list(g.cascade.models),
+                          "thresholds": list(g.cascade.thresholds),
+                          "min_queue_lens": g.min_queue_lens,
+                          "expected_accuracy": g.expected_accuracy,
+                          "expected_p95_ms": g.expected_p95 * 1e3}
+                         for r, g in enumerate(report.plan.gears)]})
+        return report.plan
+
+    plan = plan_for(TINY_QPS)
+    trace = S.make_trace("azure", TINY_TRACE_S, TINY_QPS)
+    real, done, rec = _real_run(S, plan, backend, trace, TINY_QPS,
+                                "serve_tiny_real")
+    bad = _cascade_violations(done, rec.seen)
+    rids = [r.rid for r in done]
+    real["cascade_violations"] = len(bad)
+    emit(real)
+    n_top2gap = real["launches"]["top2gap"]
+    check(len(set(rids)) == len(rids)
+          and all(0 <= r < real["offered"] for r in rids)
+          and real["done"] + real["queued_at_end"] == real["offered"],
+          "every arrival is accounted for (done or still queued)")
+    check(real["done"] >= 0.95 * real["offered"],
+          f"at least 95 % done ({real['done']}/{real['offered']})")
+    check(not bad, f"cascade semantics hold (violations: {bad[:10]})")
+    check(n_top2gap == real["executed_batches"] == real["fires"] > 0,
+          f"top2gap launches {n_top2gap} == executed batches "
+          f"{real['executed_batches']}")
+    check(all(v == 0 for k, v in real["launches"].items()
+              if k != "top2gap"), "no other kernel on the classifier path")
+    _des_run(S, plan, profiles, trace, TINY_QPS)
+
+    emit(_real_run(S, plan, backend, trace, TINY_QPS, "serve_tiny_profiled",
+                   profile=True)[0])
+
+    plan_hi = plan_for(TINY_QPS_STRESS)
+    trace_hi = S.make_trace("azure", TINY_TRACE_S, TINY_QPS_STRESS)
+    emit(_real_run(S, plan_hi, backend, trace_hi, TINY_QPS_STRESS,
+                   "serve_tiny_real")[0])
+    _des_run(S, plan_hi, profiles, trace_hi, TINY_QPS_STRESS)
+    return real["launches"]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     smi = phase_device()
@@ -848,6 +1093,9 @@ def main() -> int:
     gc.collect()                 # the qwen2 params and engines go first
     torch.cuda.empty_cache()
     paths["serve_ssm"] = phase_serve_ssm(dev)["launches"]
+    gc.collect()                 # the falcon-mamba params and engines go
+    torch.cuda.empty_cache()
+    paths["serve_tiny"] = phase_serve_tiny(dev)
     sources = {
         "top2gap": ("src/repro_torch/kernels/csrc/top2gap.cu",
                     "src/repro/kernels/top2gap.py:79"),

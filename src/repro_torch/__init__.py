@@ -1,9 +1,10 @@
-"""PyTorch and CUDA port of the CascadeServe token-cascade serving path.
+"""PyTorch and CUDA port of CascadeServe: the token-cascade serving path
+and the one-shot classifier cascade (profile, plan, serve).
 
 The package mirrors ``repro`` (the JAX/Pallas reference) module by module;
 each module names its counterpart in its docstring. It imports torch and
 numpy only: never jax and nothing of ``repro``. Where it needs one of the
-reference's framework-free modules it keeps its own trimmed copy.
+reference's framework-free modules it keeps its own copy.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``; the
 CPU is used only when the caller asks for it (the tests do), and then every

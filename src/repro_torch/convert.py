@@ -14,14 +14,15 @@ are reinterpreted bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy", "to_numpy"]
+__all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy", "to_numpy",
+           "tensor_leaves", "tiny_params_from_numpy"]
 
 
 def to_tensor(a, device="cuda", dtype: Optional[torch.dtype] = None
@@ -70,3 +71,22 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list/tuple tree, in insertion order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return []
+
+
+def tiny_params_from_numpy(tree: Any, device="cuda") -> Any:
+    """A tiny classifier's params (``repro/serving/tinymodels.py:81-102``:
+    ``embed``, ``pos``, ``head`` and ``blocks``, a list of ``{wq, wk, wv,
+    wo, w1, w2}``; all float32) as float32 tensors on ``device`` (the card
+    unless the caller asks for the CPU; raises without one)."""
+    return params_from_numpy(tree, device, torch.float32)

@@ -1,3 +1,5 @@
-"""Decision layer of the port (counterpart of ``repro/core``): trimmed
-copies of the framework-free modules the serving path needs, and the
-certainty estimators in torch."""
+"""Decision layer of the port (counterpart of ``repro/core``): verbatim
+copies of the framework-free numpy modules (profiles, cascade replay, LP,
+gears, scheduling, simulators, planner and its submodules), the execution
+backends with the port's ``EngineBackend``, and the certainty estimators
+in torch."""

@@ -1,16 +1,29 @@
-"""Certainty estimation (port of ``repro/core/certainty.py:22-206``).
+"""Certainty estimation (port of ``repro/core/certainty.py``).
 
 ``cert(model, x) = score(top-1 entity) - score(top-2 entity)`` — the gap
 between the highest and second-highest score (paper Appendix B, Eq. 5).
-The estimators take torch tensors; ``top2_gap`` goes through the top2gap
-kernel wrapper (the plain version on CPU tensors). ``StreamingCertainty``
-is the host-side float64 fold, copied verbatim; ``device_fold_*`` is the
-same fold as (B,) float32 tensors carried through the fused decode loop.
+The estimators take what the reference feeds them and the card's tensors:
+
+* a torch tensor is reduced where it lies: ``top2_gap`` goes through the
+  top2gap kernel wrapper (the kernel on the card, which launches or
+  raises; the plain version on the CPU), the others run as torch ops;
+* a numpy array is host data (validation scores, ``run_cascade_on_scores``)
+  and is reduced on the host by the plain version, as float32 (the
+  reference's jnp conversion without x64), and comes back as numpy. The
+  plain ``top2_gap`` subtracts the same two exact f32 values as
+  ``jax.lax.top_k``, so validation certainties are bit-equal.
+
+``StreamingCertainty`` is the host-side float64 fold, copied verbatim;
+``device_fold_*`` is the same fold as (B,) float32 tensors carried through
+the fused decode loop. ``threshold_grid`` and ``coverage_accuracy_curve``
+are the reference's numpy calibration helpers, copied verbatim.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -19,9 +32,24 @@ from repro_torch.kernels.top2gap import top2gap as _top2gap_kernel
 __all__ = ["top2_gap", "top2_gap_softmax", "max_prob", "entropy_certainty",
            "CERTAINTY_ESTIMATORS", "predict_with_certainty",
            "StreamingCertainty", "device_fold_init", "device_fold_update",
-           "device_fold_value", "device_fold_set_rows"]
+           "device_fold_value", "device_fold_set_rows", "threshold_grid",
+           "coverage_accuracy_curve"]
 
 
+def _host_arrays(fn):
+    """Estimator ``fn`` on tensors, extended to numpy host data: a numpy
+    array is reduced as a float32 CPU tensor and the result comes back as
+    numpy."""
+    @functools.wraps(fn)
+    def estimator(scores):
+        if isinstance(scores, torch.Tensor):
+            return fn(scores)
+        host = torch.tensor(np.asarray(scores, np.float32))
+        return fn(host).numpy()
+    return estimator
+
+
+@_host_arrays
 def top2_gap(scores: torch.Tensor) -> torch.Tensor:
     """Eq. 5: top-1 minus top-2 along the last axis. scores (..., V)."""
     flat = scores.reshape(-1, scores.shape[-1])
@@ -36,17 +64,20 @@ def _top2_values(x: torch.Tensor) -> torch.Tensor:
     return top1 - top2
 
 
+@_host_arrays
 def top2_gap_softmax(scores: torch.Tensor) -> torch.Tensor:
     """Gap between the two largest softmax probabilities (scale-invariant
     variant; useful when model families are not logit-calibrated)."""
     return _top2_values(torch.softmax(scores.float(), dim=-1))
 
 
+@_host_arrays
 def max_prob(scores: torch.Tensor) -> torch.Tensor:
     """Max softmax probability (MSP) baseline estimator."""
     return torch.softmax(scores.float(), dim=-1).max(dim=-1).values
 
 
+@_host_arrays
 def entropy_certainty(scores: torch.Tensor) -> torch.Tensor:
     """Negative predictive entropy (higher = more certain)."""
     logp = torch.log_softmax(scores.float(), dim=-1)
@@ -200,3 +231,27 @@ def device_fold_set_rows(state: FoldState, rows: torch.Tensor,
     for n in ("mean", "min", "ewma"):
         out[n][rows] = gap
     return out
+
+
+# ---------------------------------------------------------------------------
+# Threshold calibration utilities (host-side, numpy)
+# ---------------------------------------------------------------------------
+
+def threshold_grid(certs: np.ndarray, n: int = 16) -> np.ndarray:
+    """Discretise the continuous certainty range into ``n`` selectable
+    thresholds (paper §4.2) — quantiles of the observed certainty
+    distribution, plus 0 (= never forward)."""
+    qs = np.quantile(certs, np.linspace(0.0, 1.0, n + 1)[1:-1])
+    return np.unique(np.concatenate([[0.0], qs]))
+
+
+def coverage_accuracy_curve(certs: np.ndarray, correct: np.ndarray,
+                            thresholds: np.ndarray
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """For each threshold: (fraction kept, accuracy on kept samples)."""
+    keep_frac, acc = [], []
+    for t in thresholds:
+        kept = certs >= t
+        keep_frac.append(kept.mean())
+        acc.append(correct[kept].mean() if kept.any() else 1.0)
+    return np.asarray(keep_frac), np.asarray(acc)

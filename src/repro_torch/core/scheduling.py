@@ -1,21 +1,37 @@
-"""SchedulerCore and the token-boundary batcher (port of
-``repro/core/scheduling.py:35-43``, ``:96-238``, ``:326-455``).
+"""Verbatim copy of ``repro/core/scheduling.py``,
+imports rewritten to ``repro_torch``.
 
-The decision rules are copied line for line so the torch ``TokenEngine``
-faces exactly the decisions the JAX engine and the token DES face: the
-same ``ContinuousBatcher`` admission and boundary rules, and the same
-``SchedulerCore.next_hop`` cascade continuation. Routing randomness, the
-decision trace and gear-plan selection stay in the JAX package until the
-simulator and runtime are ported; ``trace`` accepts any object with the
-``routes``/``gear_switches``/``hops`` lists of ``DecisionTrace``.
+SchedulerCore: the single home of every online serving decision.
+
+The offline gear planner is only as good as the simulator's fidelity to the
+online system (paper §5, App. C, Fig. 13), so the decision logic must not be
+duplicated. This module owns all four decisions as pure functions over
+explicit state; the discrete-event ``ServingSimulator`` and the threaded
+``CascadeServer`` are thin *drivers* over it (DESIGN.md §2):
+
+* ``route(model, gear, u)``        — weighted replica routing (LP fractions)
+* ``select_gear(...)``             — gear switching; the §5 α-hysteresis is
+                                     composed in via ``with_hysteresis``
+* ``should_fire(...)``             — min-queue-length batch trigger with the
+                                     head-of-line timeout (§4.5)
+* ``next_hop(stage, cert, gear)``  — cascade continuation vs. resolution
+
+Drivers own *state and time* (queues, clocks, threads, the event heap); the
+core owns *decisions*. A new scheduling policy is one selector/config here —
+never a parallel edit of simulator and runtime.
+
+``DecisionTrace`` records every decision the core makes so that the two
+executors can be checked for exact decision parity (decision-trace equality,
+not wall-clock — ``tests/test_scheduling_parity.py``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple, Union)
 
-from repro_torch.core.gears import Gear
+import numpy as np
+
+from repro_torch.core.gears import Gear, GearPlan
 from repro_torch.core.lp import Replica
 
 
@@ -29,8 +45,51 @@ class SchedulerConfig:
     seed: int = 0
 
 
+def head_of_line_wait(t: float, head_t: float, max_wait: float) -> float:
+    """Head-of-line wait for the EXACT ``head_wait >= max_wait`` fire
+    comparison (no epsilon fudge).
+
+    Virtual-time drivers schedule the head's timeout event at the float
+    ``head_t + max_wait``; by the driver's own clock the head has waited
+    the full ``max_wait`` once ``t`` reaches that float, even where the
+    raw IEEE subtraction ``t - head_t`` undershoots ``max_wait`` by an
+    ulp. Snapping the wait to ``max_wait`` at the scheduled deadline makes
+    the exact comparison fire at exactly the event times the driver
+    scheduled — the ``max_wait - 1e-9`` fudge this replaces instead fired
+    any head within 1e-9 of the timeout EARLY, and made the trigger
+    brittle to float accumulation of virtual time."""
+    w = t - head_t
+    if w < max_wait and t >= head_t + max_wait:
+        return max_wait
+    return w
+
+
+# ---------------------------------------------------------------------------
+# Gear selection: the GearSelector protocol + α-hysteresis composition
+# ---------------------------------------------------------------------------
+
 GearSelector = Callable[[float, float, int, int], int]
 # (time, measured_qps, current_gear_idx, first_model_queue_len) -> gear idx
+
+
+def plan_target(plan: GearPlan) -> GearSelector:
+    """Raw §5 producer target: the plan's gear for the measured QPS range
+    (no hysteresis — compose with ``with_hysteresis``)."""
+    def target(t: float, measured_qps: float, cur: int, q0: int) -> int:
+        return plan.gear_index_for_qps(measured_qps)
+    return target
+
+
+def with_hysteresis(target: GearSelector, alpha: float) -> GearSelector:
+    """§5 α-hysteresis: never downgrade while the first model's backlog is
+    large relative to the measured rate (measured < α·Q0) — drain first.
+    This is the ONLY implementation of the rule; both executors compose it."""
+    def select(t: float, measured_qps: float, cur: int, q0: int) -> int:
+        tgt = target(t, measured_qps, cur, q0)
+        if tgt < cur and measured_qps < alpha * q0:
+            return cur
+        return tgt
+    return select
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +110,15 @@ class CascadeHop:
 
 
 Hop = Union[Resolved, CascadeHop]
+
+
+def is_ensemble(gear: Gear) -> bool:
+    return getattr(gear, "mode", "cascade") == "ensemble"
+
+
+def majority_vote(n_correct_votes: int, n_members: int) -> bool:
+    """Ensemble decision (Cocktail+): strict majority of member votes."""
+    return n_correct_votes * 2 > n_members
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +237,89 @@ class ContinuousBatcher:
             * slack
 
 
+# ---------------------------------------------------------------------------
+# Deterministic routing randomness (shared so executors can be compared)
+# ---------------------------------------------------------------------------
+
+class RoutePool:
+    """Pre-drawn pool of uniforms consumed one per routing decision.
+
+    Both executors draw from the same construction so a parity test can give
+    them literally the same stream (pool size changes the wrap-around, hence
+    the sequence — use ``for_arrivals`` to match the simulator's sizing).
+
+    ``key`` derives an independent KEYED substream (stable hash of the key
+    folded into the seed) instead of the positional default stream. The
+    multi-tenant path keys one pool per tenant, so inserting or removing a
+    tenant can never shift another tenant's draw sequence — with a single
+    positional stream, every routing decision of every tenant would consume
+    from one shared cursor and any new tenant would perturb all of them.
+    ``key=None`` is bit-identical to the pre-keying construction.
+    """
+    __slots__ = ("_pool", "_ptr", "_n")
+
+    def __init__(self, seed: int, size: int = 4096,
+                 key: Optional[str] = None):
+        if key is None:
+            rng = np.random.default_rng(seed)
+        else:
+            # zlib.crc32 is stable across processes and platforms (unlike
+            # hash()), so keyed streams are reproducible everywhere
+            import zlib
+            rng = np.random.default_rng(
+                [int(seed), zlib.crc32(str(key).encode("utf-8"))])
+        self._pool = rng.random(max(size, 1)).tolist()
+        self._n = len(self._pool)
+        self._ptr = 0
+
+    @classmethod
+    def for_arrivals(cls, seed: int, n_arrivals: int,
+                     key: Optional[str] = None) -> "RoutePool":
+        return cls(seed, n_arrivals * 4 + 16, key=key)
+
+    def next(self) -> float:
+        ptr = self._ptr
+        if ptr >= self._n:
+            ptr = ptr % self._n
+        self._ptr = ptr + 1
+        return self._pool[ptr]
+
+
+# ---------------------------------------------------------------------------
+# Decision trace (parity checking)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DecisionTrace:
+    """Append-only record of the core's decisions, in call order.
+
+    Routing, gear switches and cascade hops are recorded by the core itself;
+    batch firings are recorded by the driver at queue-pop time (the core's
+    ``should_fire`` is consulted arbitrarily often by polling drivers, so the
+    *positive* decision — which samples were batched on which replica — is
+    the comparable event).
+    """
+    routes: List[Tuple[str, int]] = field(default_factory=list)
+    gear_switches: List[Tuple[int, int]] = field(default_factory=list)
+    fires: List[Tuple[int, Tuple[int, ...]]] = field(default_factory=list)
+    hops: List[Tuple[int, float, str]] = field(default_factory=list)
+    # plan hot-swaps (core/adaption.py): (new epoch, old gear, remapped
+    # gear). Swaps interleave with the other decisions in call order, so
+    # two executors must agree not only on WHETHER they swapped but on the
+    # epoch sequence and the QPS-range remap.
+    swaps: List[Tuple[int, int, int]] = field(default_factory=list)
+
+    def record_fire(self, ridx: int, sample_ids: Sequence[int]) -> None:
+        self.fires.append((int(ridx), tuple(int(s) for s in sample_ids)))
+
+    def record_swap(self, epoch: int, old_gear: int, new_gear: int) -> None:
+        self.swaps.append((int(epoch), int(old_gear), int(new_gear)))
+
+    def summary(self) -> Dict[str, int]:
+        return {"routes": len(self.routes),
+                "gear_switches": len(self.gear_switches),
+                "fires": len(self.fires), "hops": len(self.hops),
+                "swaps": len(self.swaps)}
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +340,7 @@ class SchedulerCore:
     def __init__(self, replicas: Sequence[Replica],
                  cfg: SchedulerConfig = SchedulerConfig(),
                  selector: Optional[GearSelector] = None,
-                 trace: Optional[object] = None):
+                 trace: Optional[DecisionTrace] = None):
         self.replicas = list(replicas)
         self.cfg = cfg
         self.selector: GearSelector = selector or (lambda t, q, g, q0: g)

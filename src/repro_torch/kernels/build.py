@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+# held around the first build and load of a kernel: threads that reach an
+# unbuilt kernel together (the server's consumers) start nvcc once
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -88,19 +92,23 @@ def build_all() -> Dict[str, Path]:
 
 def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``name`` of ``csrc/<lib>.cu``, built and loaded at
-    first use, returning int (a ``cudaError_t``)."""
+    first use (once, under a lock, whichever thread gets there first),
+    returning int (a ``cudaError_t``)."""
     key = f"{lib}.{name}"
     fn = _fns.get(key)
     if fn is None:
-        if lib not in _libs:
-            paths = build_all()
-            if lib not in paths:
-                raise RuntimeError(f"no CUDA source csrc/{lib}.cu")
-            _libs[lib] = ctypes.CDLL(str(paths[lib]))
-        fn = getattr(_libs[lib], name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
+        with _load_lock:
+            fn = _fns.get(key)
+            if fn is None:
+                if lib not in _libs:
+                    paths = build_all()
+                    if lib not in paths:
+                        raise RuntimeError(f"no CUDA source csrc/{lib}.cu")
+                    _libs[lib] = ctypes.CDLL(str(paths[lib]))
+                fn = getattr(_libs[lib], name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _fns[key] = fn
     return fn
 
 

@@ -10,17 +10,27 @@ the greedy token): each step hands the host (B,) tokens and gaps instead of
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["top2gap", "argmax_gap"]
+__all__ = ["top2gap", "argmax_gap", "load"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+# the server's consumer threads launch concurrently: the count's
+# read-modify-write takes a lock
+_count_lock = threading.Lock()
+
+
+def load():
+    """Build and load the kernel without launching it (the server does
+    this before its consumer threads start)."""
+    return build.function("top2gap", "top2gap_launch", _ARGS)
 
 
 def top2gap(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,12 +52,12 @@ def top2gap(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("top2gap: the vocab axis must be contiguous")
     gap = torch.empty(b, dtype=torch.float32, device=scores.device)
     idx = torch.empty(b, dtype=torch.int32, device=scores.device)
-    fn = build.function("top2gap", "top2gap_launch", _ARGS)
-    rc = fn(scores.data_ptr(), gap.data_ptr(), idx.data_ptr(), b, v,
-            scores.stride(0), _DTYPES[scores.dtype],
-            torch.cuda.current_stream(scores.device).cuda_stream)
+    rc = load()(scores.data_ptr(), gap.data_ptr(), idx.data_ptr(), b, v,
+                scores.stride(0), _DTYPES[scores.dtype],
+                torch.cuda.current_stream(scores.device).cuda_stream)
     build.check(rc, "top2gap")
-    top2gap.launches += 1
+    with _count_lock:
+        top2gap.launches += 1
     return gap, idx
 
 

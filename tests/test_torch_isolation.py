@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, *bad = out.stdout.split()
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 44
     assert bad == []
 
 
@@ -63,6 +63,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     eng = SlotEngine("m", params, cfg, n_slots=2, max_len=16, device="cpu")
     slots, toks, gaps = eng.prefill_batch([np.arange(5, dtype=np.int32)])
     assert slots == [0] and toks.shape == (1,) and np.isfinite(gaps).all()
+
+
+def test_classifier_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The one-shot classifier path (tiny family, engine, serve) defaults
+    to the card too, and never moves to the CPU on its own."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import tinymodels as TT
+    from repro_torch.serving.engine import InferenceEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TT.TINY_FAMILY[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.init_tiny(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.train_tiny_family(n_train=8, n_val=8, steps_scale=0.001)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine("stub", lambda p, t: t, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--artifact", str(tmp_path / "none.npz")])
+    # the CPU when asked: params on the CPU keep the engine there
+    eng = InferenceEngine(cfg.name, lambda p, t: TT.apply_tiny(cfg, p, t),
+                          TT.init_tiny(cfg, device="cpu"))
+    assert eng.device.type == "cpu"
+    assert eng.infer(np.zeros((3, 32), np.int32)).shape == (3, 2)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -202,3 +202,48 @@ def test_flash_attention_cpu_path_counts_nothing():
     (_, qt), (_, kt), (_, vt) = _flash_inputs(1, 4, 2, 8, 32, seed=1)
     flash_attention(qt, kt, vt)
     assert K.launch_counts()["flash_attention"] == 0
+
+
+def test_concurrent_first_use_builds_and_loads_a_kernel_once(monkeypatch):
+    """Threads (more than cores) that reach an unbuilt kernel together,
+    as the server's consumers can: one nvcc build, one library load, one
+    bound function for all of them."""
+    import ctypes
+    import os
+    import sys
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+    calls = {"build": 0, "load": 0}
+
+    def slow_build_all():
+        calls["build"] += 1
+        time.sleep(0.05)
+        return {"fake": "libfake.so"}
+
+    class FakeLib:
+        def __init__(self, path):
+            calls["load"] += 1
+            self.entry = type("Fn", (), {})()
+
+    monkeypatch.setattr(build, "build_all", slow_build_all)
+    monkeypatch.setattr(ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_fns", {})
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        build.function("fake", "entry", [ctypes.c_int])))
+        for _ in range(4 * (os.cpu_count() or 2))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == {"build": 1, "load": 1}
+    assert len(got) == len(threads) and all(f is got[0] for f in got)

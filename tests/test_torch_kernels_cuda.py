@@ -11,13 +11,18 @@ flash kernel P rounded to bf16 before P.V as the JAX model does; the
 kernels use the fast exp); the selective scan within 2e-4 of its plain
 version (f32 throughout, other summation order over N; the JAX sweep's
 limit); the
-smoke-size models within 1e-4 of their CPU runs in f32.
+smoke-size models within 1e-4 of their CPU runs in f32; the tiny
+classifier's scores within 1e-4 of its CPU run in f32, and the certainties
+``EngineBackend.execute`` reduces on the card bit-equal to the CPU's for
+the same scores.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import execution as TX
 from repro_torch.core.cascade import Cascade
 from repro_torch.core.certainty import device_fold_init
 from repro_torch.core.gears import Gear
@@ -27,6 +32,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.top2gap import top2gap
 from repro_torch.models import model as TM
+from repro_torch.serving import engine as TE
+from repro_torch.serving import tinymodels as TY
 from repro_torch.serving import token_engine as TT
 
 pytestmark = pytest.mark.cuda
@@ -515,3 +522,117 @@ def test_ssm_smoke_model_on_card_matches_cpu(cuda):
     assert decode_attention.launches == counts["decode"]
     assert flash_attention.launches == counts["flash"]
     assert all(b == 1 for b, _ in eng.stats.prefill_shapes)
+
+
+# ---------------------------------------------------------------------------
+# The one-shot classifier path: InferenceEngine and EngineBackend on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [3, 129])
+def test_tiny_inference_engine_on_card_matches_cpu(cuda, n):
+    """t-base (the widest member) on the card against its CPU run: scores
+    within 1e-4 in f32 with TF32 off (``resolve_device``), the bucket
+    padding and the oversize split included."""
+    resolve_device(cuda)
+    cfg = TY.TINY_FAMILY[4]
+    p_cpu = TY.init_tiny(cfg, seed=1, device="cpu")
+    engines = [TE.InferenceEngine(cfg.name,
+                                  lambda p, t: TY.apply_tiny(cfg, p, t), p)
+               for p in (p_cpu, _to(p_cpu, cuda))]
+    assert engines[1].device.type == "cuda"
+    tok = np.random.default_rng(n).integers(0, 64, (n, 32)).astype(np.int32)
+    ref = engines[0].infer(tok)
+    out = engines[1].infer(tok)
+    assert out.device.type == "cuda" and out.shape == (n, 2)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+class _RowScores:
+    """Stub engine: row ``tokens[i, 0]`` of a fixed (N, 2) score table, on
+    the table's device."""
+
+    def __init__(self, scores):
+        self.scores = scores
+
+    def infer(self, tokens):
+        rows = torch.from_numpy(np.asarray(tokens)[:, 0].astype(np.int64))
+        return self.scores[rows.to(self.scores.device)]
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 128])
+def test_engine_backend_execute_on_card_matches_cpu(cuda, n):
+    """The same (n, 2) f32 scores reduced by the top2gap kernel on the
+    card and by its plain version on the CPU: certainties bit-equal,
+    predictions equal (an exact tie: gap 0, the lower class), one kernel
+    launch per ``execute``."""
+    table = torch.from_numpy(_rand(n, (200, 2), 3.0))
+    table[5] = torch.tensor([1.5, 1.5])
+    toks = np.arange(200, dtype=np.int32)[:, None].repeat(4, 1)
+    labels = np.random.default_rng(n).integers(0, 2, 200).astype(np.int32)
+    sids = [(5 + 37 * i) % 200 for i in range(n)]
+    out = []
+    for dev in ("cpu", cuda):
+        b = TX.EngineBackend({"m": _RowScores(table.to(dev))},
+                             tokens=toks, labels=labels)
+        before = top2gap.launches
+        out.append(b.execute("m", sids))
+        assert top2gap.launches - before == (1 if dev == cuda else 0)
+    cpu, gpu = out
+    assert gpu.certs.dtype == np.float64
+    assert np.array_equal(gpu.certs, cpu.certs)
+    assert np.array_equal(gpu.preds, cpu.preds)
+    assert gpu.correct == cpu.correct
+    if 5 in sids:
+        i = sids.index(5)
+        assert gpu.certs[i] == 0.0 and gpu.preds[i] == 0
+
+
+def test_tiny_family_trains_and_serves_on_card(cuda):
+    """A short family run on the card: training, profiles through the
+    engine backend (runtimes positive, mem 4 B per parameter), and one
+    top2gap launch per executed batch."""
+    fam = TY.TINY_FAMILY[:2]
+    out = TY.train_tiny_family(n_train=256, n_val=128, steps_scale=0.05,
+                               family=fam, device=cuda)
+    assert all(t.device.type == "cuda"
+               for t in TY._leaves(out[0][fam[0].name]))
+    backend = TY.make_engine_backend(*out, family=fam, batch_sizes=(1, 4),
+                                     repeats=2)
+    for cfg in fam:
+        prof = backend.profiles[cfg.name]
+        assert np.all(prof.batch_runtimes > 0)
+        assert prof.mem_bytes == 4 * sum(
+            t.numel() for t in TY._leaves(out[0][cfg.name]))
+    before = top2gap.launches
+    for k in range(3):
+        ex = backend.execute(fam[0].name, list(range(k, k + 5)))
+        assert len(ex.certs) == 5 and np.all(ex.certs >= 0)
+    assert top2gap.launches - before == 3
+
+
+def test_top2gap_launch_count_exact_under_threads(cuda):
+    """The server's consumer threads launch concurrently: the wrapper's
+    count loses no launch."""
+    import sys
+    import threading
+    x = torch.from_numpy(_rand(0, (4, 2))).to(cuda)
+    n_threads, per_thread = 16, 200
+    before = top2gap.launches
+
+    def work():
+        for _ in range(per_thread):
+            top2gap(x)
+
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert top2gap.launches - before == n_threads * per_thread
