@@ -13,10 +13,13 @@ non-zero exit code and no ``ok`` line:
              and prints ptxas's registers, spills and shared memory for
              each kernel entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
-             card at the serving paths' shapes (top2gap bit-exact with
+             card at the serving paths' shapes, the attention kernels also
+             at qwen3-32b's (H 64, KV 8, hd 128) and olmo-1b's (B 4, H 16
+             = KV 16, hd 128, S and C 200-208) (top2gap bit-exact with
              planted ties, also at the classifier's B 64, V 2; bf16
-             attention within 2e-2 of the f32 plain
-             version; the selective scan within 2e-4, f32 throughout) and
+             attention within 2e-2 of the f32 plain version, f32
+             attention at qwen3-32b's heads within 1e-5; the selective
+             scan within 2e-4, f32 throughout) and
              times kernel, plain version and the PyTorch library call that
              computes the same function where one exists (a yardstick the
              port never calls), with CUDA events, against the least time
@@ -40,7 +43,8 @@ non-zero exit code and no ``ok`` line:
              (batch-1 prefills, one decode call per step) must reduce
              every prefill and step through the top2gap kernel and serve
              the fused run's tokens. A torch.profiler window over fused
-             decode steps ends the phase.
+             decode steps, then one over a repeat of the 8-prompt
+             prefill, ends the phase.
 5. serve_ssm — the SSM path, after the qwen2 params are freed: a
              two-stage cascade of full-width falcon-mamba-7b (64 Mamba-1
              layers, d_inner 8192, d_state 16, vocab 65,024; random bf16
@@ -52,7 +56,32 @@ non-zero exit code and no ``ok`` line:
              tokens against a teacher-forced ``forward``, and a profiler
              window ends the phase. Prefill time per prompt length and the
              peak device memory are printed.
-6. serve_tiny — the paper's one-shot classifier lifecycle through
+6. serve_qwen3 — after the SSM params are freed, the heterogeneous
+             cascade the serve CLI's ``--workload qwen`` names: full-width
+             qwen2-0.5b at stage a, full-width qwen3-32b at stage b (64
+             layers, d 5120, 64 heads over 8 KV heads at hd 128, qk-norm,
+             untied head; 65.5 GB of bf16 weights; random, seeds 0 and
+             1), the same engine and traffic. Launches per stage: decode
+             attention = layers x decode steps, flash = layers x prefill
+             calls, summed over the stages; top2gap once per step and
+             prefill; no scan. Stage b's served tokens against a bf16
+             teacher-forced ``forward`` where the gap exceeds
+             QWEN3_BF16_MARGIN, a profiler window over stage b's fused
+             steps, peak memory, then the 0.1 check in f32 on a depth-cut
+             copy of stage b (its first QWEN3_F32_LAYERS layers, full
+             width, 22 GB).
+7. forward_olmo — full-width olmo-1b (GQA group 1 at hd 128, the
+             non-parametric LayerNorm) in bf16: a prefill and 8 teacher-
+             forced decode steps against ``forward`` (max logit error
+             within OLMO_LOGIT_TOL, argmax equal where the gap > 0.1),
+             launches counted.
+8. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
+             beside the profiler windows' device ms per decode step for
+             the three token models and qwen3-32b's prefill (host wall,
+             and device ms from the trace window's profiled repeat); the
+             ``--workload qwen`` plan and DES through the serve CLI's own
+             functions (qwen3-32b must place on one card).
+9. serve_tiny — the paper's one-shot classifier lifecycle through
              ``repro_torch.launch.serve``'s own functions: the tiny family
              (five transformers, d 16-96) trains on the card, every member
              is profiled through the ``EngineBackend`` that serves it, the
@@ -74,6 +103,7 @@ The last lines are the kernel table (JSON), the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -123,10 +153,21 @@ SCAN_TOL = 2e-4           # f32 scan kernel vs the f32 plain version
 SSM_BF16_MARGIN = 0.5     # bf16 teacher-forced margin on the SSM path
 F32_GAP_TOL = 1e-3        # f32 decode vs forward gaps (summation order)
 ATTN_TOL = 2e-2           # bf16 kernel vs the f32 plain version
+F32_ATTN_TOL = 1e-5       # f32 kernel vs the f32 plain version (cuda tests)
 L2_BYTES = 50 * 2 ** 20   # inputs are cycled through more than this
 
 ARCH = "qwen2-0.5b"
 SSM_ARCH = "falcon-mamba-7b"
+QWEN3_ARCH = "qwen3-32b"      # stage b of the heterogeneous cascade
+OLMO_ARCH = "olmo-1b"
+QWEN3_BF16_MARGIN = 0.5       # bf16 teacher-forced margin, 64 layers
+QWEN3_BF16_CHECKED = 8        # stage-b requests held at that margin
+QWEN3_F32_LAYERS = 8          # depth of the f32 copy of qwen3-32b (22 GB)
+# bf16 decode / prefill vs forward logits: logits of std ~0.9 rounded to
+# bf16 (2^-9 relative) after 16 layers of bf16 GEMM outputs, whose shapes
+# differ between the paths; the largest of ~1.8 M differences
+OLMO_LOGIT_TOL = 0.25
+OLMO_BATCH, OLMO_STEPS = 4, 8
 N_SLOTS, MAX_LEN, SPEC_K = 8, 512, 4
 N_REQ, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 16, 200
 MIN_TOKENS, EARLY_MARGIN = 4, 0.5
@@ -315,11 +356,11 @@ def kernel_top2gap(dev) -> dict:
                 at_v4096=timed[8, 4096], at_b64_v2=timed[TINY_BATCH, 2])
 
 
-def kernel_decode(dev) -> dict:
-    b, h, kv, d, c = N_SLOTS, 14, 2, 64, MAX_LEN
-    vl = torch.tensor([1, 2, 100, 256, 300, 511, 512, 512],
-                      dtype=torch.int32, device=dev)
-    g = _gen(7)
+def _time_decode(dev, b, h, kv, d, c, vl, seed) -> dict:
+    """One-query GQA attention over a (B, C, KV, hd) bf16 cache view with
+    ragged valid lengths ``vl``: checked against the f32 plain version and
+    timed beside it and SDPA."""
+    g = _gen(seed)
 
     def make():
         q = torch.randn(b, h, d, generator=g, device=dev).bfloat16()
@@ -333,7 +374,8 @@ def kernel_decode(dev) -> dict:
     rout = ref.decode_attention_ref(q.float(), k.float(), v.float(), vl)
     torch.cuda.synchronize()
     err = float((out.float() - rout).abs().max())
-    check(err <= ATTN_TOL, f"decode_attention within {ATTN_TOL} ({err})")
+    check(err <= ATTN_TOL, f"decode_attention H={h} KV={kv} hd={d} within "
+                           f"{ATTN_TOL} ({err})")
     n_valid = int(vl.sum())
     nbytes = (2 * b * h * d * 2 + 2 * n_valid * kv * d * 2 + b * 4)
     sets = [make() for _ in range(copies(nbytes))]
@@ -349,7 +391,7 @@ def kernel_decode(dev) -> dict:
         attn_mask=mask, enable_gqa=True) for s in sets])
     flops = 4 * h * d * n_valid
     bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    return dict(name="decode_attention", max_abs_err=err,
+    return dict(max_abs_err=err,
                 shape=f"B={b} H={h} KV={kv} hd={d} C={c} bf16 "
                       f"valid_len={vl.tolist()}",
                 ms=kms, plain_ms=pms, library_ms=lms,
@@ -358,15 +400,69 @@ def kernel_decode(dev) -> dict:
                 bound_flops=flops)
 
 
+def _check_decode_f32(dev, b, h, kv, d, c, vl, seed) -> float:
+    """The f32 kernel (f32 q over an f32 cache, as ``greedy_generate``
+    runs it, and over the engine's bf16 slot pool) against the f32 plain
+    version within F32_ATTN_TOL. Returns the larger error."""
+    g = _gen(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    k = torch.randn(b, c, kv, d, generator=g, device=dev)
+    v = torch.randn(b, c, kv, d, generator=g, device=dev)
+    worst = 0.0
+    for kk, vv in ((k, v), (k.bfloat16(), v.bfloat16())):
+        out = decode_attention(q, kk, vv, vl)
+        rout = ref.decode_attention_ref(q, kk.float(), vv.float(), vl)
+        torch.cuda.synchronize()
+        err = float((out - rout).abs().max())
+        check(err <= F32_ATTN_TOL,
+              f"f32 decode_attention (cache {kk.dtype}) H={h} KV={kv} "
+              f"hd={d} within {F32_ATTN_TOL} ({err})")
+        worst = max(worst, err)
+    return worst
+
+
+def kernel_decode(dev) -> dict:
+    """At qwen2-0.5b's shape (H 14, KV 2, hd 64; the row's shape) and at
+    qwen3-32b's (H 64, KV 8, hd 128: a group of 8, the kernel's most), B 8,
+    C 512, ragged valid lengths; at olmo-1b's decode steps (B 4, H 16 = KV
+    16, a group of 1, hd 128, C 208, valid 201-208); and in f32 at
+    qwen3-32b's heads, the f32 depth-cut check's decode."""
+    vl = torch.tensor([1, 2, 100, 256, 300, 511, 512, 512],
+                      dtype=torch.int32, device=dev)
+    qwen2 = _time_decode(dev, N_SLOTS, 14, 2, 64, MAX_LEN, vl, seed=7)
+    qwen3 = _time_decode(dev, N_SLOTS, 64, 8, 128, MAX_LEN, vl, seed=8)
+    olmo_c = PROMPT_HI + OLMO_STEPS
+    olmo_vl = torch.tensor([PROMPT_HI + 1, PROMPT_HI + 4, PROMPT_HI + 6,
+                            olmo_c], dtype=torch.int32, device=dev)
+    olmo = _time_decode(dev, OLMO_BATCH, 16, 16, 128, olmo_c, olmo_vl,
+                        seed=9)
+    f32 = _check_decode_f32(dev, N_SLOTS, 64, 8, 128, MAX_LEN, vl, seed=10)
+    row = dict(name="decode_attention", **qwen2, at_qwen3=qwen3,
+               at_olmo=olmo, f32_at_qwen3_max_abs_err=f32)
+    row["max_abs_err"] = max(qwen2["max_abs_err"], qwen3["max_abs_err"],
+                             olmo["max_abs_err"])
+    return row
+
+
 def kernel_flash(dev) -> dict:
-    """Causal bf16 at B 8, H 14, KV 2, hd 64: the row's shape is S 256;
-    S 64, the most common prefill bucket, is timed beside it."""
-    b, h, kv, d = N_SLOTS, 14, 2, 64
+    """Causal bf16: qwen2-0.5b's heads (H 14, KV 2, hd 64) at B 8, S 256
+    (the row's shape) and at S 64, the most common prefill bucket;
+    qwen3-32b's (H 64, KV 8, hd 128) at B 8, S 256; olmo-1b's (H 16 = KV
+    16, hd 128) at B 4 and its forward's S 208 and prefill's S 200. Then
+    f32 at qwen3-32b's heads, as the f32 depth-cut check runs it: its
+    engine's B 4 x 256 bucket and the batch-1 forward of the first
+    request (204 tokens)."""
     g = _gen(11)
     worst = 0.0
     timed = {}
-    for s in (64, 256):
-        def make(s=s):
+    olmo_s = PROMPT_HI + OLMO_STEPS
+    for b, s, h, kv, d in ((N_SLOTS, 64, 14, 2, 64),
+                           (N_SLOTS, 256, 14, 2, 64),
+                           (N_SLOTS, 256, 64, 8, 128),
+                           (OLMO_BATCH, olmo_s, 16, 16, 128),
+                           (OLMO_BATCH, PROMPT_HI, 16, 16, 128)):
+
+        def make(b=b, s=s, h=h, kv=kv, d=d):
             return (torch.randn(b, s, h, d, generator=g, device=dev)
                     .bfloat16(),
                     torch.randn(b, s, kv, d, generator=g, device=dev)
@@ -383,8 +479,8 @@ def kernel_flash(dev) -> dict:
                                v[:, :n].contiguous())
         torch.cuda.synchronize()
         err = float((out.float() - rout).abs().max())
-        check(err <= ATTN_TOL, f"flash_attention S={s} within {ATTN_TOL} "
-                               f"({err})")
+        check(err <= ATTN_TOL, f"flash_attention B={b} S={s} H={h} KV={kv} "
+                               f"hd={d} within {ATTN_TOL} ({err})")
         check(torch.equal(part, out[:, :n]),
               f"flash_attention right padding invisible (S={s}, n={n})")
         worst = max(worst, err)
@@ -399,15 +495,34 @@ def kernel_flash(dev) -> dict:
             for t in sets])
         flops = 4 * d * b * h * s * (s + 1) // 2
         bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        timed[s] = dict(shape=f"B={b} S={s} H={h} KV={kv} hd={d} causal "
-                              f"bf16", ms=kms, plain_ms=pms,
-                        library_ms=lms,
-                        library="F.scaled_dot_product_attention(causal, "
-                                "enable_gqa)",
-                        bound_ms=bms, bound_by=by, bound_bytes=nbytes,
-                        bound_flops=flops)
-    return dict(name="flash_attention", max_abs_err=worst, **timed[256],
-                at_s64=timed[64])
+        timed[b, s, h] = dict(shape=f"B={b} S={s} H={h} KV={kv} hd={d} "
+                                    f"causal bf16", max_abs_err=err,
+                              ms=kms, plain_ms=pms, library_ms=lms,
+                              library="F.scaled_dot_product_attention("
+                                      "causal, enable_gqa)",
+                              bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                              bound_flops=flops)
+    f32 = 0.0
+    for b, s in ((4, 256), (1, 204)):
+        q = torch.randn(b, s, 64, 128, generator=g, device=dev)
+        k = torch.randn(b, s, 8, 128, generator=g, device=dev)
+        v = torch.randn(b, s, 8, 128, generator=g, device=dev)
+        out = flash_attention(q, k, v)
+        rout = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out - rout).abs().max())
+        check(err <= F32_ATTN_TOL, f"f32 flash_attention B={b} S={s} H=64 "
+                                   f"KV=8 hd=128 within {F32_ATTN_TOL} "
+                                   f"({err})")
+        f32 = max(f32, err)
+    row = dict(name="flash_attention", **timed[N_SLOTS, 256, 14],
+               at_s64=timed[N_SLOTS, 64, 14],
+               at_qwen3=timed[N_SLOTS, 256, 64],
+               at_olmo=timed[OLMO_BATCH, olmo_s, 16],
+               at_olmo_s200=timed[OLMO_BATCH, PROMPT_HI, 16],
+               f32_at_qwen3_max_abs_err=f32)
+    row["max_abs_err"] = worst
+    return row
 
 
 def kernel_mamba(dev) -> dict:
@@ -549,24 +664,34 @@ def _timed(eng: SlotEngine, log: dict) -> None:
     eng.decode_fused = decode_t
 
 
-def serve_cascade(dev, arch: str, phase: str):
-    """The main path for one architecture: a two-stage cascade of
-    full-width ``arch`` models (random bf16 weights, seeds 0 and 1) served
-    by the fused TokenEngine. A calibration pass of stage a alone sets the
-    threshold so that requests both resolve at a and escalate to b; the
-    launch counters are zeroed just before the measured run and read just
-    after. Returns (summary, params, cfg, requests, calibration results,
+def _ms_medians(log: dict) -> dict:
+    return {"step_ms_median": statistics.median(log["step_ms"])
+            if log["step_ms"] else None,
+            "prefill_ms_median": {k: statistics.median(v) for k, v in
+                                  sorted(log["prefill"].items(),
+                                         key=lambda kv: [int(x) for x in
+                                                         kv[0].split("x")])}}
+
+
+def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
+    """The main path: a two-stage cascade of full-width models (random
+    bf16 weights, seeds 0 and 1), ``arch`` at stage a and ``arch_b`` (or
+    ``arch`` again) at stage b, served by the fused TokenEngine. A
+    calibration pass of stage a alone sets the threshold so that requests
+    both resolve at a and escalate to b; the launch counters are zeroed
+    just before the measured run and read just after. Returns (summary,
+    params by stage, configs by stage, requests, calibration results,
     served results)."""
-    cfg = get_config(arch)
-    params = {m: model_lib.init_params(cfg, seed=s, device=dev)
+    cfgs = {"a": get_config(arch), "b": get_config(arch_b or arch)}
+    params = {m: model_lib.init_params(cfgs[m], seed=s, device=dev)
               for m, s in (("a", 0), ("b", 1))}
-    param_bytes = sum(t.numel() * t.element_size() for t in
-                      _leaves(params["a"]))
-    reqs = _requests(cfg)
+    param_bytes = {m: sum(t.numel() * t.element_size()
+                          for t in _leaves(params[m])) for m in params}
+    reqs = _requests(cfgs["a"])
 
     # calibration: stage a alone; its gap streams set the threshold
-    cal = TokenEngine([SlotEngine("a", params["a"], cfg, N_SLOTS, MAX_LEN,
-                                  device=dev)], _gear(["a"], []),
+    cal = TokenEngine([SlotEngine("a", params["a"], cfgs["a"], N_SLOTS,
+                                  MAX_LEN, device=dev)], _gear(["a"], []),
                       min_tokens=MIN_TOKENS, early_margin=EARLY_MARGIN,
                       spec_k=SPEC_K).serve(reqs)
     streams = [cal[r.rid].gaps for r in reqs]
@@ -581,11 +706,11 @@ def serve_cascade(dev, arch: str, phase: str):
     thr = min(cands, key=lambda t: abs(
         _predicted_escalations(streams, t) - N_REQ / 2))
 
-    stages = [SlotEngine(m, params[m], cfg, N_SLOTS, MAX_LEN, device=dev)
-              for m in ("a", "b")]
-    log = {"prefill": {}, "step_ms": []}
+    stages = [SlotEngine(m, params[m], cfgs[m], N_SLOTS, MAX_LEN,
+                         device=dev) for m in ("a", "b")]
+    logs = {m: {"prefill": {}, "step_ms": []} for m in ("a", "b")}
     for e in stages:
-        _timed(e, log)
+        _timed(e, logs[e.name])
     te = TokenEngine(stages, _gear(["a", "b"], [thr]),
                      min_tokens=MIN_TOKENS, early_margin=EARLY_MARGIN,
                      mode="fused", spec_k=SPEC_K)
@@ -602,6 +727,19 @@ def serve_cascade(dev, arch: str, phase: str):
     n_a = sum(r.resolver == 0 for r in res)
     n_b = sum(r.resolver == 1 for r in res)
     tokens_out = sum(len(r.tokens) for r in res)
+    # one arch at both stages: its steps, prefills and bound pooled at the
+    # top level; two archs: per stage only (``by_stage``)
+    pooled = {}
+    if cfgs["a"].name == cfgs["b"].name:
+        both = {"prefill": {}, "step_ms": logs["a"]["step_ms"]
+                + logs["b"]["step_ms"]}
+        for log in logs.values():
+            for k, v in log["prefill"].items():
+                both["prefill"].setdefault(k, []).extend(v)
+        pooled = {**_ms_medians(both),
+                  "param_bytes_per_stage": param_bytes["a"],
+                  "weight_read_bound_step_ms": param_bytes["a"]
+                  / HBM_BYTES_PER_S * 1e3}
     summary = {
         "phase": phase, "arch": arch, "stages": 2,
         "n_slots": N_SLOTS, "max_len": MAX_LEN, "spec_k": SPEC_K,
@@ -616,13 +754,16 @@ def serve_cascade(dev, arch: str, phase: str):
         "prefill_shapes": {k: [list(x) for x in v]
                            for k, v in st["prefill_shapes"].items()},
         "spec_discarded": st["spec_discarded"],
-        "step_ms_median": statistics.median(log["step_ms"]),
-        "prefill_ms_median": {k: statistics.median(v) for k, v in
-                              sorted(log["prefill"].items(),
-                                     key=lambda kv: [int(x) for x in
-                                                     kv[0].split("x")])},
-        "param_bytes_per_stage": param_bytes,
-        "weight_read_bound_step_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+        **pooled,
+        "by_stage": {e.name: {
+            "arch": cfgs[e.name].name, "layers": cfgs[e.name].num_layers,
+            "decode_steps": e.stats.decode_steps,
+            "decode_calls": e.stats.decode_calls,
+            "prefill_calls": e.stats.prefill_calls,
+            **_ms_medians(logs[e.name]),
+            "param_bytes": param_bytes[e.name],
+            "weight_read_bound_step_ms": param_bytes[e.name]
+            / HBM_BYTES_PER_S * 1e3} for e in stages},
         "launches": launches,
     }
     emit(summary)
@@ -634,27 +775,36 @@ def serve_cascade(dev, arch: str, phase: str):
     for r in res:
         check(r.resolver in (0, 1) and r.done_step >= 0, "request completes")
         check(len(r.tokens) == MAX_NEW, "request streams max_new tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r.tokens), "tokens range")
+        check(all(0 <= t < cfgs["a"].vocab_size for t in r.tokens),
+              "tokens range")
         check(all(np.isfinite(g) and g >= 0 for gs in r.stage_gaps.values()
                   for g in gs), "gaps finite and >= 0")
     check(n_a >= 1 and n_b >= 1, f"both outcomes: {n_a} at a, {n_b} at b")
-    return summary, params, cfg, reqs, cal, out
+    return summary, params, cfgs, reqs, cal, out
 
 
-def phase_serve(dev) -> dict:
-    summary, params, cfg, reqs, cal, out = serve_cascade(dev, ARCH, "serve")
-    _teacher_forced_check(params, cfg, reqs, out, "serve")
-    launches, layers = summary["launches"], cfg.num_layers
+def _check_attention_launches(summary: dict) -> None:
+    """Each attention kernel launches once per layer of every decode step
+    (decode) or prefill call (flash) of each stage; no scan runs."""
+    launches, by = summary["launches"], summary["by_stage"].values()
     expect = {
-        "decode_attention": layers * summary["decode_steps"],
-        "flash_attention": layers * summary["prefill_calls"],
+        "decode_attention": sum(s["layers"] * s["decode_steps"] for s in by),
+        "flash_attention": sum(s["layers"] * s["prefill_calls"] for s in by),
     }
     for name, n in expect.items():
         check(launches[name] == n and n > 0,
               f"{name} launches {launches[name]} == {n} > 0")
     check(launches["mamba_scan"] == 0, "no scan on the attention path")
+
+
+def phase_serve(dev) -> dict:
+    summary, params, cfgs, reqs, cal, out = serve_cascade(dev, ARCH,
+                                                          "serve")
+    cfg = cfgs["a"]
+    _teacher_forced_check(params, cfgs, reqs, out, "serve")
+    _check_attention_launches(summary)
     phase_reference(dev, params["a"], cfg, reqs, cal)
-    phase_trace(dev, params, cfg, reqs, "trace")
+    summary["trace"] = phase_trace(dev, params, cfg, reqs, "trace")
     return summary
 
 
@@ -663,8 +813,9 @@ def phase_serve_ssm(dev) -> dict:
     batch-1 prefills whose scans run in the mamba_scan kernel, single-step
     recurrent decode, top2gap at V 65,024, and no attention kernel."""
     torch.cuda.reset_peak_memory_stats()
-    summary, params, cfg, reqs, _, out = serve_cascade(dev, SSM_ARCH,
-                                                       "serve_ssm")
+    summary, params, cfgs, reqs, _, out = serve_cascade(dev, SSM_ARCH,
+                                                        "serve_ssm")
+    cfg = cfgs["a"]
     launches, layers = summary["launches"], cfg.num_layers
     n = layers * summary["prefill_calls"]
     check(launches["mamba_scan"] == n and n > 0,
@@ -681,46 +832,109 @@ def phase_serve_ssm(dev) -> dict:
     # in bf16 the tokens must agree where the gap exceeds SSM_BF16_MARGIN;
     # the 0.1 check is held in f32 below, where only summation order
     # differs
-    _teacher_forced_check(params, cfg, reqs, out, "serve_ssm",
+    _teacher_forced_check(params, cfgs, reqs, out, "serve_ssm",
                           enforce_at=SSM_BF16_MARGIN)
-    phase_trace(dev, params, cfg, reqs, "trace_ssm")
+    summary["trace"] = phase_trace(dev, params, cfg, reqs, "trace_ssm")
     summary["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "memory_ssm",
           "max_memory_allocated_bytes": summary["max_memory_allocated_bytes"],
           "param_bytes_two_stages": 2 * summary["param_bytes_per_stage"]})
-    phase_teacher_forced_f32(dev, params["a"], cfg, reqs)
+    phase_teacher_forced_f32(dev, _widen(params["a"]), cfg, reqs,
+                             "serve_ssm")
     return summary
 
 
-def phase_teacher_forced_f32(dev, params, cfg, reqs, n_req: int = 4) -> None:
-    """Stage a in float32 at full width (its bf16 weights widened, 29 GB)
+def phase_serve_qwen3(dev) -> dict:
+    """The heterogeneous token cascade: full-width qwen2-0.5b at stage a,
+    full-width qwen3-32b (64 layers, d 5120, 64 heads over 8 KV heads at
+    hd 128, qk-norm, an untied head; 65.5 GB of bf16 weights) at stage b,
+    one 151,936-token vocabulary, through the same engine and traffic.
+    Checks the per-stage launch formulas, holds stage b's served tokens
+    against a bf16 teacher-forced ``forward`` at QWEN3_BF16_MARGIN, traces
+    stage b's fused decode steps, then holds the 0.1 check in f32 on a
+    depth-cut copy of stage b (its first QWEN3_F32_LAYERS layers, full
+    width)."""
+    torch.cuda.reset_peak_memory_stats()
+    summary, params, cfgs, reqs, _, out = serve_cascade(
+        dev, ARCH, "serve_qwen3", arch_b=QWEN3_ARCH)
+    _check_attention_launches(summary)
+    at_b = [r for r in reqs if out[r.rid].resolver == 1]
+    # bf16 rounding over 64 layers moves a top-2 gap between the decode
+    # and the forward path; the tokens must agree where forward's gap
+    # exceeds QWEN3_BF16_MARGIN (the largest gap difference is printed),
+    # on up to QWEN3_BF16_CHECKED of the requests stage b resolved
+    _teacher_forced_check(params, cfgs, at_b, out, "serve_qwen3",
+                          n_check=QWEN3_BF16_CHECKED,
+                          enforce_at=QWEN3_BF16_MARGIN)
+    summary["trace"] = phase_trace(dev, params, cfgs["b"], reqs,
+                                   "trace_qwen3", stage="b")
+    summary["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "memory_qwen3",
+          "max_memory_allocated_bytes": summary["max_memory_allocated_bytes"],
+          "param_bytes_by_stage": {m: v["param_bytes"] for m, v in
+                                   summary["by_stage"].items()}})
+    cut = dataclasses.replace(cfgs["b"], num_layers=QWEN3_F32_LAYERS)
+    p32 = _depth_cut_f32(params.pop("b"), QWEN3_F32_LAYERS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_teacher_forced_f32(dev, p32, cut, reqs, "serve_qwen3")
+    return summary
+
+
+def _depth_cut_f32(params, n_layers: int):
+    """The first ``n_layers`` repetitions of a dense model's params in
+    float32, built leaf by leaf while the full-depth bf16 leaves are
+    dropped, so the bf16 model and its f32 cut never coexist whole."""
+    out = {}
+    for key in list(params):
+        tree = params.pop(key)
+        if key == "blocks":
+            out[key] = [{k: _cut_leaves(v, n_layers) for k, v in blk.items()}
+                        for blk in tree]
+        else:
+            out[key] = _widen(tree)
+        del tree
+    return out
+
+
+def _cut_leaves(tree, n):
+    if isinstance(tree, dict):
+        return {k: _cut_leaves(tree.pop(k), n) for k in list(tree)}
+    return tree[:n].float()
+
+
+def phase_teacher_forced_f32(dev, p32, cfg, reqs, of: str,
+                             n_req: int = 4) -> None:
+    """One float32 stage at full width (``cfg`` may be cut in depth)
     serves the first requests through the fused engine; the served tokens
     must agree with an f32 teacher-forced ``forward`` wherever its top-2
-    gap exceeds 0.1. The engine's slot pool rounds a joiner's conv tail to
-    bf16 (as the JAX engine's does), so the gaps are held tight on
-    ``greedy_generate``, whose cache stays f32: its decode gaps within
-    F32_GAP_TOL of the forward's."""
-    p32 = {"a": _widen(params)}
-    te = TokenEngine([SlotEngine("a", p32["a"], cfg, N_SLOTS, MAX_LEN,
+    gap exceeds 0.1. The engine's slot pool rounds a joiner's cache (the
+    SSM's conv tail, attention's K/V) to bf16 as the JAX engine's does, so
+    the gaps are held tight on ``greedy_generate``, whose cache stays f32:
+    its decode gaps within F32_GAP_TOL of the forward's."""
+    kernel = "mamba_scan" if cfg.ssm is not None else "flash_attention"
+    te = TokenEngine([SlotEngine("a", p32, cfg, N_SLOTS, MAX_LEN,
                                  device=dev)], _gear(["a"], []),
                      min_tokens=MIN_TOKENS, early_margin=EARLY_MARGIN,
                      spec_k=SPEC_K)
     sub = reqs[:n_req]
-    before = K.launch_counts()["mamba_scan"]
+    before = K.launch_counts()[kernel]
     out = te.serve(sub)
-    check(K.launch_counts()["mamba_scan"] - before
+    check(K.launch_counts()[kernel] - before
           == cfg.num_layers * te.stats()["prefill_calls"],
-          "the f32 prefills run the scan kernel in every layer")
-    _teacher_forced_check(p32, cfg, sub, out, "serve_ssm_f32")
+          f"the f32 prefills run {kernel} in every layer")
+    _teacher_forced_check({"a": p32}, {"a": cfg}, sub, out, f"{of}_f32")
     r = reqs[0]
-    toks, gaps = greedy_generate(p32["a"], cfg, r.prompt, MAX_NEW)
+    toks, gaps = greedy_generate(p32, cfg, r.prompt, MAX_NEW)
     seq = np.concatenate([r.prompt, toks[:-1]])[None]
-    logits, _ = model_lib.forward(p32["a"], cfg, {"tokens": seq})
+    logits, _ = model_lib.forward(p32, cfg, {"tokens": seq})
     fgap, fidx = top2gap(logits[0, r.prompt.size - 1:].contiguous())
     diff = float(np.abs(fgap.cpu().numpy() - gaps).max())
     clear = fgap.cpu().numpy() > 0.1
-    emit({"phase": "greedy_f32", "of": "serve_ssm", "tokens": len(toks),
-          "max_gap_diff": diff, "positions_checked": int(clear.sum()),
+    emit({"phase": "greedy_f32", "of": of, "layers": cfg.num_layers,
+          "tokens": len(toks), "max_gap_diff": diff,
+          "positions_checked": int(clear.sum()),
           "agreed": int((fidx.cpu().numpy()[clear] == toks[clear]).sum())})
     check(diff <= F32_GAP_TOL,
           f"f32 decode and forward gaps within {F32_GAP_TOL} ({diff})")
@@ -778,25 +992,10 @@ def phase_reference(dev, params, cfg, reqs, fused, n_req: int = 4,
     check(compared > 0, "reference tokens compared with the fused run")
 
 
-def phase_trace(dev, params, cfg, reqs, phase: str,
-                n_steps: int = 8) -> None:
-    """A torch.profiler window over fused decode steps of stage a with
-    every slot resident: device-busy share of the step and the kernels
-    that take the time (measurement only; nothing is checked)."""
+def _device_kernels(prof, per: int) -> list:
+    """(device ms, launches, name) of each kernel in a torch.profiler
+    window, divided by ``per``, the longest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    eng = SlotEngine("a", params["a"], cfg, N_SLOTS, MAX_LEN, device=dev)
-    eng.prefill_batch([r.prompt for r in reqs[:N_SLOTS]])
-    eng.decode_fused(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.decode_fused(1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -804,17 +1003,72 @@ def phase_trace(dev, params, cfg, reqs, phase: str,
         t_us = getattr(e, "self_device_time_total", None)
         if t_us is None:
             t_us = e.self_cuda_time_total
-        kernels.append((t_us / 1e3 / n_steps, e.count / n_steps, e.key))
+        kernels.append((t_us / 1e3 / per, e.count / per, e.key))
     kernels.sort(reverse=True)
+    return kernels
+
+
+def phase_trace(dev, params, cfg, reqs, phase: str, n_steps: int = 8,
+                stage: str = "a") -> dict:
+    """A torch.profiler window over fused decode steps of one stage with
+    every slot resident: device-busy share of the step and the kernels
+    that take the time (measurement only; nothing is checked). The
+    prefill that fills the slots is timed on the host clock; after the
+    decode window the slots are released and the same prompts prefilled
+    again inside a second profiler window, for the prefill's device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = SlotEngine(stage, params[stage], cfg, N_SLOTS, MAX_LEN,
+                     device=dev)
+    prompts = [r.prompt for r in reqs[:N_SLOTS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill_batch(prompts)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    bucket = f"{len(prompts)}x{max(len(p) for p in prompts)}"
+    if model_lib.bucketed_prefill_supported(cfg):
+        bucket = (f"{eng._batch_bucket(len(prompts))}x"
+                  f"{eng._len_bucket(max(len(p) for p in prompts))}")
+    eng.decode_fused(1)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.decode_fused(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    kernels = _device_kernels(prof, n_steps)
     busy = sum(k[0] for k in kernels)
-    emit({"phase": phase, "arch": cfg.name, "steps": n_steps,
-          "batch": N_SLOTS,
-          "wall_ms_per_step": wall_ms,
-          "device_busy_ms_per_step": busy if kernels else None,
-          "idle_share": 1.0 - busy / wall_ms if kernels else None,
-          "kernel_launches_per_step": sum(k[1] for k in kernels),
-          "top": [{"ms_per_step": t, "launches_per_step": c,
-                   "kernel": name[:90]} for t, c, name in kernels[:12]]})
+    for slot in np.flatnonzero(eng.active):
+        eng.release(int(slot))
+    torch.cuda.synchronize()
+    with profile(activities=acts) as pprof:
+        t0 = time.perf_counter()
+        eng.prefill_batch(prompts)
+        torch.cuda.synchronize()
+        pwall_ms = (time.perf_counter() - t0) * 1e3
+    pkernels = _device_kernels(pprof, 1)
+    pbusy = sum(k[0] for k in pkernels)
+    row = {"phase": phase, "arch": cfg.name, "steps": n_steps,
+           "batch": N_SLOTS, "prefill_bucket": bucket,
+           "prefill_ms": prefill_ms,
+           "wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy if kernels else None,
+           "idle_share": 1.0 - busy / wall_ms if kernels else None,
+           "kernel_launches_per_step": sum(k[1] for k in kernels),
+           "top": [{"ms_per_step": t, "launches_per_step": c,
+                    "kernel": name[:90]} for t, c, name in kernels[:12]],
+           "prefill_profiled": {
+               "wall_ms": pwall_ms,
+               "device_busy_ms": pbusy if pkernels else None,
+               "idle_share": 1.0 - pbusy / pwall_ms if pkernels else None,
+               "kernel_launches": sum(k[1] for k in pkernels),
+               "top": [{"ms": t, "launches": c, "kernel": name[:90]}
+                       for t, c, name in pkernels[:12]]}}
+    emit(row)
+    return row
 
 
 def _leaves(tree):
@@ -828,25 +1082,27 @@ def _leaves(tree):
         yield tree
 
 
-def _teacher_forced_check(params, cfg, reqs, out, phase: str,
+def _teacher_forced_check(params, cfgs, reqs, out, phase: str,
                           n_check: int = 4, enforce_at: float = 0.1
                           ) -> dict:
-    """Feeds prompt + served tokens through ``forward`` (the flash
-    attention or selective-scan kernel) and compares its greedy argmax
-    with the tokens the decode loop served, at every position where
-    forward's top-2 gap exceeds a margin: counted at 0.1 and at
-    ``enforce_at``, and required to agree at ``enforce_at``. Also reports
-    the largest gap difference between the two paths."""
-    margins = sorted({0.1, enforce_at})
+    """Feeds prompt + served tokens of the first ``n_check`` requests
+    through their resolving stage's ``forward`` (the flash attention or
+    selective-scan kernel) and compares its greedy argmax with the tokens
+    the decode loop served, at every position where forward's top-2 gap
+    exceeds a margin: counted at 0.1, 0.25, 0.5, 1 and ``enforce_at``, and
+    required to agree at ``enforce_at``. Also reports the largest gap
+    difference between the two paths."""
+    margins = sorted({0.1, 0.25, 0.5, 1.0, enforce_at})
     checked = dict.fromkeys(margins, 0)
     agreed = dict.fromkeys(margins, 0)
     max_gap_diff = 0.0
     for r in reqs[:n_check]:
         res = out[r.rid]
-        p = params["a" if res.resolver == 0 else "b"]
+        stage = "a" if res.resolver == 0 else "b"
         seq = np.concatenate([r.prompt, np.asarray(res.tokens[:-1],
                                                    np.int32)])[None]
-        logits, _ = model_lib.forward(p, cfg, {"tokens": seq})
+        logits, _ = model_lib.forward(params[stage], cfgs[stage],
+                                      {"tokens": seq})
         tail = logits[0, r.prompt.size - 1:]              # (tokens, V)
         gap, idx = top2gap(tail.contiguous())
         gap, idx = gap.cpu().numpy(), idx.cpu().numpy()
@@ -858,7 +1114,9 @@ def _teacher_forced_check(params, cfg, reqs, out, phase: str,
             checked[m] += int(clear.sum())
             agreed[m] += int((idx[clear] == served[clear]).sum())
     agree = {"phase": "teacher_forced", "of": phase,
-             "dtype": str(params["a"]["embed"]["embedding"].dtype),
+             "requests": [r.rid for r in reqs[:n_check]],
+             "dtype": str(next(iter(params.values()))["embed"]["embedding"]
+                          .dtype),
              "enforced_margin": enforce_at,
              "positions_checked": {str(m): checked[m] for m in margins},
              "agreed": {str(m): agreed[m] for m in margins},
@@ -871,9 +1129,144 @@ def _teacher_forced_check(params, cfg, reqs, out, phase: str,
     return agree
 
 
+def phase_forward_olmo(dev) -> dict:
+    """Full-width olmo-1b (16 layers, d 2048, 16 heads over 16 KV heads
+    at hd 128: a GQA group of 1; the non-parametric LayerNorm; bf16 from
+    seed 0), one stage: prompts of PROMPT_HI tokens prefilled, then
+    OLMO_STEPS decode steps fed the next tokens (teacher-forced), each
+    position's logits against ``forward`` over the same tokens. Launch
+    counters are zeroed just before and read just after: flash attention
+    once per layer of the forward and of the prefill, decode attention
+    once per layer of each step, top2gap once for each of the two argmax
+    reductions. Returns the launch counts."""
+    cfg = get_config(OLMO_ARCH)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    b, s, n = OLMO_BATCH, PROMPT_HI, OLMO_STEPS
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + n)).astype(np.int32)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    full, _ = model_lib.forward(params, cfg, {"tokens": toks})
+    last, cache = model_lib.prefill(params, cfg, {"tokens": toks[:, :s]},
+                                    cache_len=s + n)
+    steps = [last]
+    for i in range(n):
+        logits, cache = model_lib.decode_step(
+            params, cfg, toks[:, s + i:s + i + 1], cache, s + i)
+        steps.append(logits)
+    served = torch.stack(steps, 1)                      # (B, n + 1, V)
+    ref_tail = full[:, s - 1:s + n]                     # same positions
+    fgap, fidx = top2gap(ref_tail.reshape(-1, cfg.vocab_size).contiguous())
+    _, sidx = top2gap(served.reshape(-1, cfg.vocab_size).contiguous())
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    err = float((served - ref_tail).abs().max())
+    clear = fgap > 0.1
+    agreed = int((fidx[clear] == sidx[clear]).sum())
+    row = {"phase": "forward_olmo", "arch": cfg.name, "batch": b,
+           "prompt_len": s, "decode_steps": n,
+           "logit_std": float(ref_tail.float().std()),
+           "max_logit_err": err, "tol": OLMO_LOGIT_TOL,
+           "positions_checked": int(clear.sum()), "agreed": agreed,
+           "finite": bool(torch.isfinite(full).all()),
+           "launches": launches}
+    emit(row)
+    layers = cfg.num_layers
+    check(row["finite"], "olmo forward logits finite")
+    check(err <= OLMO_LOGIT_TOL,
+          f"olmo prefill/decode logits within {OLMO_LOGIT_TOL} of forward "
+          f"({err})")
+    check(int(clear.sum()) > 0 and agreed == int(clear.sum()),
+          f"olmo argmax agrees where forward's gap > 0.1 "
+          f"({agreed}/{int(clear.sum())})")
+    expect = {"flash_attention": 2 * layers,
+              "decode_attention": layers * n, "top2gap": 2,
+              "mamba_scan": 0}
+    for name, want in expect.items():
+        check(launches[name] == want,
+              f"forward_olmo {name} launches {launches[name]} == {want}")
+    return launches
+
+
+def phase_cost_model(traces: dict, qwen3: dict) -> None:
+    """The analytic cost model on H100 constants (``repro_torch.profiling``)
+    beside what the card measured: a decode step at B N_SLOTS, context
+    MAX_LEN against the profiler windows' device ms per step (and host
+    wall ms), qwen3-32b's prefill against the trace window's prefill of
+    eight prompts (the B 8 x 256 bucket; host wall, and device ms from
+    its profiled repeat);
+    then the serve CLI's ``--workload qwen`` plan and DES through its own
+    functions. Numbers only, except that qwen3-32b must place on one card
+    and the DES must complete requests; the constants are not tuned to
+    the measurements."""
+    from repro_torch.core.plan_state import HardwareSpec
+    from repro_torch.core.planner import optimize_gear_plan
+    from repro_torch.launch import serve as S
+    from repro_torch.profiling import cost_model as CM
+    from repro_torch.profiling import hw
+
+    rows = []
+    for arch, tr in traces.items():
+        cfg = get_config(arch)
+        rows.append({
+            "arch": arch, "kind": "decode", "batch": N_SLOTS,
+            "context": MAX_LEN,
+            "analytic_ms": CM.analytic_runtime(cfg, N_SLOTS, MAX_LEN,
+                                               "decode", 1) * 1e3,
+            "weight_read_bound_ms": cfg.active_param_count() * 2.0
+            / hw.HBM_BW * 1e3,
+            "measured_device_ms": tr["device_busy_ms_per_step"],
+            "measured_wall_ms": tr["wall_ms_per_step"],
+            "launches_per_step": tr["kernel_launches_per_step"]})
+    tr = traces[QWEN3_ARCH]
+    b, length = (int(x) for x in tr["prefill_bucket"].split("x"))
+    flops = CM.model_flops(get_config(QWEN3_ARCH), b * length, length,
+                           "prefill")
+    dev_ms = tr["prefill_profiled"]["device_busy_ms"]
+    rows.append({
+        "arch": QWEN3_ARCH, "kind": "prefill", "batch": b,
+        "context": length,
+        "analytic_ms": CM.analytic_runtime(get_config(QWEN3_ARCH), b,
+                                           length, "prefill", 1) * 1e3,
+        "analytic_flops": flops,
+        "measured_device_ms": dev_ms,
+        # the whole prefill's rate: its GEMMs run at least this fast
+        "device_flop_share_of_peak": flops / (dev_ms * 1e-3)
+        / hw.PEAK_FLOPS_BF16 if dev_ms else None,
+        "measured_wall_ms": tr["prefill_ms"],
+        "served_wall_ms_by_bucket": qwen3["by_stage"]["b"]
+        ["prefill_ms_median"]})
+    emit({"phase": "cost_model", "hw": {
+        "PEAK_FLOPS_BF16": hw.PEAK_FLOPS_BF16, "HBM_BW": hw.HBM_BW,
+        "HBM_BYTES": hw.HBM_BYTES, "ICI_BW": hw.ICI_BW}, "rows": rows})
+
+    profiles = S.qwen_backend().profiles
+    spec = HardwareSpec(num_devices=4, mem_per_device=hw.HBM_BYTES)
+    report = optimize_gear_plan(profiles, spec, S.parse_slo("latency:0.3"),
+                                qps_max=60.0, n_ranges=8)
+    plan = report.plan
+    res = S.serve_des(plan, profiles, S.make_trace("diurnal", 60, 60.0))
+    emit({"phase": "cost_model_plan", "workload": "qwen",
+          "slices": {n: p.devices_per_replica for n, p in profiles.items()},
+          "runtime_ms_b1": {n: p.runtime(1) * 1e3
+                            for n, p in profiles.items()},
+          "seconds": report.wall_seconds,
+          "ranges": [{"qps_to": plan.range_width * (r + 1),
+                      "cascade": list(g.cascade.models),
+                      "expected_accuracy": g.expected_accuracy,
+                      "expected_p95_ms": g.expected_p95 * 1e3}
+                     for r, g in enumerate(plan.gears)],
+          "des": {"done": res.completed, "offered": res.offered,
+                  "p95_ms": res.p95 * 1e3, "accuracy": res.accuracy,
+                  "utilization": res.utilization,
+                  "gear_switches": len(res.gear_switches)}})
+    check(profiles[QWEN3_ARCH].devices_per_replica == 1,
+          "qwen3-32b places on one modelled H100")
+    check(res.completed > 0, "the qwen DES completes requests")
+
 
 # ---------------------------------------------------------------------------
-# phase 6: the one-shot classifier cascade (train, profile, plan, serve)
+# phase 9: the one-shot classifier cascade (train, profile, plan, serve)
 # ---------------------------------------------------------------------------
 
 class _Recording:
@@ -1089,12 +1482,19 @@ def main() -> int:
     dev = resolve_device("cuda")   # strict fp32 matmuls (no TF32)
     phase_build()
     timed = phase_kernels(dev)
-    paths = {"serve": phase_serve(dev)["launches"]}
-    gc.collect()                 # the qwen2 params and engines go first
+    paths, summaries = {}, {}
+    for name, phase in (("serve", phase_serve),
+                        ("serve_ssm", phase_serve_ssm),
+                        ("serve_qwen3", phase_serve_qwen3)):
+        summaries[name] = phase(dev)
+        paths[name] = summaries[name]["launches"]
+        gc.collect()             # this path's params and engines go first
+        torch.cuda.empty_cache()
+    paths["forward_olmo"] = phase_forward_olmo(dev)
+    gc.collect()
     torch.cuda.empty_cache()
-    paths["serve_ssm"] = phase_serve_ssm(dev)["launches"]
-    gc.collect()                 # the falcon-mamba params and engines go
-    torch.cuda.empty_cache()
+    phase_cost_model({s["trace"]["arch"]: s["trace"]
+                      for s in summaries.values()}, summaries["serve_qwen3"])
     paths["serve_tiny"] = phase_serve_tiny(dev)
     sources = {
         "top2gap": ("src/repro_torch/kernels/csrc/top2gap.cu",
@@ -1111,7 +1511,7 @@ def main() -> int:
     rows = []
     for name, (src, replaces) in sources.items():
         t = timed[name]
-        # launches: both main-path runs together, and each on its own
+        # launches: every main-path run together, and each on its own
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": sum(p[name] for p in paths.values()),
@@ -1122,7 +1522,11 @@ def main() -> int:
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
                      **{key: t[key] for key in ("bound_bytes", "bound_flops")
-                        if key in t}})
+                        if key in t},
+                     **{at: {key: t[at][key] for key in (
+                         "shape", "max_abs_err", "ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms")}
+                        for at in ("at_qwen3", "at_olmo") if at in t}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

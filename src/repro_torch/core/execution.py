@@ -8,8 +8,8 @@ verbatim copies of the reference (the numpy layer both executors share).
 whose ``infer`` returns torch tensors. On the card one ``argmax_gap``
 launch (the top2gap kernel) reduces a batch's (n, C) scores to its
 certainties and predictions, and both reach the host in one transfer.
-``CostModelBackend`` (the analytic roofline) is not ported yet: it waits
-for the H100 constants module and ``profiling/cost_model.py``.
+``CostModelBackend`` (the analytic roofline) is a verbatim copy too; the
+cost model it reads runs on the H100's constants.
 
 Both executors (the discrete-event ``ServingSimulator`` and the threaded
 ``CascadeServer``) obtain per-sample (pred, certainty, correctness) and
@@ -41,8 +41,8 @@ from repro_torch.core.profiles import (ModelProfile, ProfileSet, TokenProfile,
 from repro_torch.kernels.top2gap import argmax_gap
 
 __all__ = ["BatchExecution", "ExecutionBackend", "ReplayBackend",
-           "EngineBackend", "TokenReplayBackend", "profile_backend",
-           "resolve_estimator"]
+           "EngineBackend", "CostModelBackend", "TokenReplayBackend",
+           "profile_backend", "resolve_estimator"]
 
 
 def resolve_estimator(est: Union[str, Callable]) -> Callable:
@@ -472,6 +472,47 @@ class EngineBackend(ExecutionBackend):
             batch_runtimes=np.asarray(rts),
             validation=validation or ValidationRecord(
                 certs=np.zeros(1), correct=np.ones(1, bool)))
+
+
+# ---------------------------------------------------------------------------
+# CostModelBackend: the analytic roofline, here on the H100's constants
+# (``repro_torch/profiling/hw.py``)
+# ---------------------------------------------------------------------------
+
+class CostModelBackend(ReplayBackend):
+    """The assigned big architectures cannot run on this container, so their
+    physics come from the analytic TPU-v5e roofline
+    (``repro.profiling.cost_model.analytic_runtime``) with synthetic or
+    measured validation behaviour replayed per sample — a ReplayBackend
+    whose profiles are derived, not measured.
+
+    ``archs`` maps model name -> ModelConfig (or an arch id resolvable via
+    ``repro.configs.get_config``); ``validation`` maps model name ->
+    ValidationRecord (certainty structure cannot be derived analytically).
+    """
+
+    name = "cost_model"
+
+    def __init__(self, archs: Mapping[str, object],
+                 validation: Optional[Mapping[str, ValidationRecord]] = None,
+                 context: int = 2048, kind: str = "decode",
+                 chips: Optional[Mapping[str, int]] = None,
+                 batch_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128)):
+        from repro_torch.configs import get_config
+        from repro_torch.profiling.cost_model import profile_from_cost_model
+        profiles: ProfileSet = {}
+        for name, cfg in archs.items():
+            if isinstance(cfg, str):
+                cfg = get_config(cfg)
+            profiles[name] = profile_from_cost_model(
+                cfg, context=context, kind=kind,
+                chips=(chips or {}).get(name),
+                batch_sizes=batch_sizes,
+                validation=(validation or {}).get(name))
+            profiles[name].name = name
+        super().__init__(profiles)
+        self.context = context
+        self.kind = kind
 
 
 # ---------------------------------------------------------------------------

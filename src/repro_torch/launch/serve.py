@@ -8,22 +8,27 @@
   does not exist yet, then saved to it); profiles are measured through the
   same backend via ``profile_backend`` and the gear planner (Algorithm 1)
   plans over them.
+* ``--workload qwen`` — the assigned-architecture family (qwen2-0.5b ->
+  qwen3-32b) behind a ``CostModelBackend``: latency and memory from the
+  analytic roofline on H100 constants (``profiling/hw.py``), certainty
+  structure synthesised. Its logical devices are modelled H100s, so
+  ``--mem-per-device`` defaults to one card's HBM there.
 * default — the arrival trace is served on the discrete-event simulator
-  over those measured profiles.
-* ``--real`` — the threaded producer/consumer ``CascadeServer`` serves the
-  trace on the wall clock; every batch's certainties and predictions come
-  from one top2gap kernel launch. The simulator's p95 for the same plan and
-  trace is printed beside the served one: the plan's logical devices share
-  one card here, which the simulator does not model.
+  over those profiles.
+* ``--real`` (tiny only) — the threaded producer/consumer ``CascadeServer``
+  serves the trace on the wall clock; every batch's certainties and
+  predictions come from one top2gap kernel launch. The simulator's p95 for
+  the same plan and trace is printed beside the served one: the plan's
+  logical devices share one card here, which the simulator does not model.
 * ``--stress-replay`` — the threaded wall-clock runtime over a
   ``ReplayBackend`` (no model compute).
 
 ``--device`` (default ``cuda``) selects where the models train and run;
-the CPU only when asked. ``--mem-per-device`` defaults to the device's
-memory divided among ``--devices``. Not ported yet, and refused with the
-ROADMAP.md queue 1 item that brings them: ``--workload qwen`` (item 10,
-``CostModelBackend`` on H100 constants), ``--tenants`` (item 12,
-multi-tenant serving) and ``--metrics-out`` (item 13, telemetry).
+the CPU only when asked. For ``tiny``, ``--mem-per-device`` defaults to
+the device's memory divided among ``--devices``. Not ported yet, and
+refused with the ROADMAP.md queue 1 item that brings them: ``--tenants``
+(item 3, multi-tenant serving) and ``--metrics-out`` (item 2, baselines
+and telemetry).
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.execution import EngineBackend, ReplayBackend
+from repro_torch.core.execution import (CostModelBackend, EngineBackend,
+                                        ReplayBackend, profile_backend)
 from repro_torch.core.gears import SLO, GearPlan
 from repro_torch.core.plan_state import HardwareSpec
 from repro_torch.core.planner import optimize_gear_plan
@@ -44,6 +50,7 @@ from repro_torch.core.scheduling import DecisionTrace
 from repro_torch.core.simulator import (ServingSimulator, SimResult,
                                         trace_to_arrivals)
 from repro_torch.core.traces import azure_like_trace, diurnal_like_trace
+from repro_torch.profiling import hw as hw_consts
 
 DEFAULT_ARTIFACT = "build/repro_torch_artifacts/tiny_family.npz"
 
@@ -75,6 +82,21 @@ def tiny_backend(artifact: str, device="cuda") -> EngineBackend:
                                                 train_tiny_family)
     return make_engine_backend(*train_tiny_family(cache_path=artifact,
                                                   device=device))
+
+
+def qwen_backend() -> CostModelBackend:
+    """CostModelBackend for the assigned big architectures: accuracy/
+    certainty structure synthesised, latency/memory analytic (H100)."""
+    from repro_torch.core.profiles import synthetic_family
+    names = ["qwen2-0.5b", "internvl2-1b", "qwen2-moe-a2.7b", "qwen3-32b"]
+    synth = synthetic_family(names, base_acc=0.55, acc_gain=0.05, seed=11)
+    return CostModelBackend(
+        {n: n for n in names}, context=2048, kind="decode",
+        validation={n: synth[n].validation for n in names})
+
+
+def qwen_profiles() -> ProfileSet:
+    return profile_backend(qwen_backend())
 
 
 def make_trace(kind: str, seconds: int, qps_max: float) -> np.ndarray:
@@ -131,7 +153,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--devices", type=int, default=4,
                     help="logical devices of the plan")
     ap.add_argument("--mem-per-device", type=float, default=0.0,
-                    help="bytes (default: the device's memory / --devices)")
+                    help="bytes (default: tiny, the device's memory / "
+                         "--devices; qwen, one modelled H100's HBM)")
     ap.add_argument("--qps-max", type=float, default=0.0)
     ap.add_argument("--n-ranges", type=int, default=8)
     ap.add_argument("--trace", default="diurnal",
@@ -152,32 +175,37 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--tenants", default="")
     args = ap.parse_args(argv)
 
-    if args.workload == "qwen":
-        raise NotImplementedError(
-            "--workload qwen needs CostModelBackend on H100 constants and "
-            "profiling/cost_model.py (ROADMAP.md queue 1 item 10)")
     if args.tenants:
         raise NotImplementedError(
-            "--tenants needs MultiTenantServer, core/tenancy.py and "
-            "core/admission.py (ROADMAP.md queue 1 item 12)")
+            "--tenants needs MultiTenantServer and core/admission.py "
+            "(ROADMAP.md queue 1 item 3)")
     if args.metrics_out:
         raise NotImplementedError(
-            "--metrics-out needs core/telemetry.py (ROADMAP.md queue 1 "
-            "item 13)")
+            "--metrics-out needs serving/baselines.py and the telemetry "
+            "dump (ROADMAP.md queue 1 item 2)")
+    if args.real and args.workload != "tiny":
+        ap.error("--real serves the tiny workload only")
 
     device = resolve_device(args.device)
-    backend = tiny_backend(args.artifact, device)
+    if args.workload == "tiny":
+        backend = tiny_backend(args.artifact, device)
+        qps_max = args.qps_max or 2000.0
+        mem_name, mem_bytes = device_memory(device)
+        mem_per_device = args.mem_per_device or mem_bytes / args.devices
+        where = f"{args.devices} on {mem_name}"
+    else:
+        backend = qwen_backend()
+        qps_max = args.qps_max or 60.0
+        # the plan's devices are modelled H100s, not slices of this one
+        mem_per_device = args.mem_per_device or hw_consts.HBM_BYTES
+        where = f"{args.devices} modelled H100s"
     profiles = backend.profiles
-    qps_max = args.qps_max or 2000.0
     for name, p in profiles.items():
         print(f"  {name:14s} acc={p.accuracy:.3f} "
               f"rt(1)={p.runtime(1) * 1e3:.2f}ms "
               f"slice={p.devices_per_replica}")
-
-    mem_name, mem_bytes = device_memory(device)
-    mem_per_device = args.mem_per_device or mem_bytes / args.devices
     print(f"memory per logical device: {mem_per_device / 1e9:.2f} GB "
-          f"({args.devices} on {mem_name})")
+          f"({where})")
     slo = parse_slo(args.slo)
     hw = HardwareSpec(num_devices=args.devices,
                       mem_per_device=mem_per_device)

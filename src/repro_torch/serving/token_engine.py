@@ -413,6 +413,15 @@ class TokenEngine:
             raise ValueError(
                 f"stage engines {[e.name for e in stages]} do not match "
                 f"the gear cascade {list(gear.cascade.models)}")
+        vocabs = {e.cfg.vocab_size for e in stages}
+        if len(vocabs) > 1:
+            # an escalation replays stage i's tokens into stage i + 1; the
+            # JAX engine would clamp out-of-range ids, the torch embedding
+            # would fault on the card
+            raise ValueError(
+                f"stages must share one vocabulary, got vocab_size "
+                f"{[e.cfg.vocab_size for e in stages]} for "
+                f"{[e.name for e in stages]}")
         if mode not in ("fused", "reference"):
             raise ValueError(f"mode must be fused|reference, got {mode!r}")
         if spec_k < 1:

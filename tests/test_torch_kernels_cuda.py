@@ -343,6 +343,34 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     torch.testing.assert_close(g1, g0, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["olmo-1b", "h2o-danube-1.8b",
+                                  "qwen3-32b"])
+def test_dense_smoke_models_on_card_match_cpu(cuda, arch):
+    """olmo-1b (non-parametric LN), h2o-danube-1.8b (its 64-slot ring,
+    prompts of 80 tokens) and qwen3-32b (qk-norm, untied head) at smoke
+    size in f32: forward, prefill and 3 decode steps through the kernels
+    agree with the CPU plain path within 1e-4."""
+    cfg = get_smoke_config(arch)
+    p_cpu = TM.init_params(cfg, seed=2, dtype=torch.float32, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    s = 80
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, s + 3)) \
+        .astype(np.int32)
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        full, _ = TM.forward(p, cfg, {"tokens": toks})
+        last, cache = TM.prefill(p, cfg, {"tokens": toks[:, :s]},
+                                 cache_len=s + 3)
+        steps = [TM.decode_step(p, cfg, toks[:, pos:pos + 1], cache,
+                                pos)[0].cpu() for pos in range(s, s + 3)]
+        outs.append((full.cpu(), last.cpu(), torch.stack(steps)))
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    # decode past the window equals the windowed forward on the card
+    torch.testing.assert_close(outs[1][2], outs[1][0][:, s:s + 3]
+                               .transpose(0, 1), atol=1e-4, rtol=1e-4)
+
+
 def test_reference_mode_reduces_through_the_kernel(cuda):
     """Reference mode and ``greedy_generate`` on the card take each
     prefill's and each decode step's argmax and gap from the top2gap
@@ -585,6 +613,35 @@ def test_engine_backend_execute_on_card_matches_cpu(cuda, n):
     if 5 in sids:
         i = sids.index(5)
         assert gpu.certs[i] == 0.0 and gpu.preds[i] == 0
+
+
+@pytest.mark.parametrize("estimator", ["top2_gap_softmax", "max_prob",
+                                       "neg_entropy"])
+def test_engine_backend_other_estimators_on_card_match_cpu(cuda, estimator):
+    """``EngineBackend.execute`` with an estimator other than top2_gap
+    reduces on the card with torch ops (no top2gap launch): certainties
+    within 1e-6 abs / 1e-6 rel of the CPU's for the same (n, 5) scores
+    (f32 softmax and entropy in another order), predictions equal, ties to
+    the lower class."""
+    table = torch.from_numpy(_rand(3, (200, 5), 3.0))
+    table[5] = torch.tensor([1.5, 0.0, 1.5, -1.0, 1.5])
+    table[6] = 0.25
+    toks = np.arange(200, dtype=np.int32)[:, None].repeat(4, 1)
+    labels = np.random.default_rng(3).integers(0, 5, 200).astype(np.int32)
+    sids = [5, 6] + [(11 + 37 * i) % 200 for i in range(62)]
+    out = []
+    for dev in ("cpu", cuda):
+        b = TX.EngineBackend({"m": _RowScores(table.to(dev))},
+                             estimator=estimator, tokens=toks, labels=labels)
+        before = top2gap.launches
+        out.append(b.execute("m", sids))
+        assert top2gap.launches == before
+    cpu, gpu = out
+    assert gpu.certs.dtype == np.float64
+    np.testing.assert_allclose(gpu.certs, cpu.certs, atol=1e-6, rtol=1e-6)
+    assert np.array_equal(gpu.preds, cpu.preds)
+    assert gpu.preds[0] == 0 and gpu.preds[1] == 0
+    assert gpu.correct == cpu.correct
 
 
 def test_tiny_family_trains_and_serves_on_card(cuda):

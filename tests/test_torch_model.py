@@ -221,8 +221,13 @@ def test_greedy_generate_matches_jax():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        get_config("olmo-1b")
+    """Every arch id is registered; the model paths not ported yet (MoE
+    FFNs, encoder-decoders, modality frontends) refuse at init_params."""
+    for arch in ("qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+                 "jamba-v0.1-52b", "seamless-m4t-large-v2", "internvl2-1b"):
+        with pytest.raises(NotImplementedError):
+            TM.init_params(get_smoke_config(arch), device="cpu")
+    assert get_config("olmo-1b").name == "olmo-1b"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     moe = get_smoke_config("qwen2-0.5b").scaled(

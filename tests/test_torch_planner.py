@@ -50,12 +50,15 @@ VERBATIM = ["core/profiles.py", "core/lp.py", "core/cascade.py",
             "core/submodules/cascade_search.py",
             "core/submodules/workload_adaption.py",
             "core/submodules/hardware_mapping.py",
-            "core/submodules/batching.py"]
+            "core/submodules/batching.py", "core/telemetry.py",
+            "core/adaption.py", "core/tenancy.py",
+            "profiling/cost_model.py"]
 # verbatim definitions inside modules that are otherwise ported
 VERBATIM_DEFS = {
     "core/execution.py": ["resolve_estimator", "BatchExecution",
                           "ExecutionBackend", "ReplayBackend",
-                          "TokenReplayBackend", "profile_backend"],
+                          "TokenReplayBackend", "CostModelBackend",
+                          "profile_backend"],
     "core/certainty.py": ["StreamingCertainty", "threshold_grid",
                           "coverage_accuracy_curve"],
     "serving/runtime.py": ["Request", "_ReplicaQueue", "CascadeServer"],
