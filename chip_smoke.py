@@ -3,8 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure ends the script with a
-non-zero exit code and no ``ok`` line:
+Phases, each printing one JSON line (with the card's ``nvidia-smi`` name
+and power limit beside its numbers); any failure ends the script with a
+non-zero exit code and no ``ok`` line. On the card every fixed-shape entry
+point of the engines runs from a CUDA graph captured at its first call
+(``repro_torch/serving/graphs.py``): the fused decode per k, the reference
+decode, the bucketed prefill per bucket, the classifier engine per batch
+bucket; exact-length batch-1 prefills run eagerly. The kernel wrappers'
+launch counts include graph replays.
 
 1. device  — asserts CUDA; prints the card's name and power limit as
              ``nvidia-smi --query-gpu=name,power.limit`` reports them.
@@ -42,9 +48,22 @@ non-zero exit code and no ``ok`` line:
              ``forward`` pass, and a short reference-mode run of stage a
              (batch-1 prefills, one decode call per step) must reduce
              every prefill and step through the top2gap kernel and serve
-             the fused run's tokens. A torch.profiler window over fused
-             decode steps, then one over a repeat of the 8-prompt
-             prefill, ends the phase.
+             the fused run's tokens. Each stage's ``compile_counts``
+             must be the shapes it served (bucketed prefill graphs = the
+             buckets prefilled <= the bucket grid, fused graphs = the k
+             values run). A torch.profiler window over fused decode
+             steps, then one over a repeat of the 8-prompt prefill, with
+             the host's CUDA API calls (``cudaGraphLaunch``,
+             ``cudaLaunchKernel``) per step. Then ``graphs_vs_eager``: a
+             fresh engine's bucketed prefill and fused decode (k 1 and
+             4), and in reference mode its decode, each replayed at least
+             twice on new inputs against a direct eager call of the same
+             ``models/model.py`` function on a cloned copy of the state:
+             tokens, gaps, certainties and the state after, bit for bit.
+             A ``path_summary`` line ends the phase: served step and
+             prefill ms beside device ms, host launch calls and device
+             kernels per step, graphs, capture seconds, peak memory,
+             tokens/s.
 5. serve_ssm — the SSM path, after the qwen2 params are freed: a
              two-stage cascade of full-width falcon-mamba-7b (64 Mamba-1
              layers, d_inner 8192, d_state 16, vocab 65,024; random bf16
@@ -54,8 +73,9 @@ non-zero exit code and no ``ok`` line:
              top2gap reduces every step at V 65,024, and no attention
              kernel runs; the launch counters are checked as above, served
              tokens against a teacher-forced ``forward``, and a profiler
-             window ends the phase. Prefill time per prompt length and the
-             peak device memory are printed.
+             window, ``graphs_vs_eager`` (fused decode only: the prefills
+             are eager) and ``path_summary`` end the phase. Prefill time
+             per prompt length and the peak device memory are printed.
 6. serve_qwen3 — after the SSM params are freed, the heterogeneous
              cascade the serve CLI's ``--workload qwen`` names: full-width
              qwen2-0.5b at stage a, full-width qwen3-32b at stage b (64
@@ -67,9 +87,10 @@ non-zero exit code and no ``ok`` line:
              prefill; no scan. Stage b's served tokens against a bf16
              teacher-forced ``forward`` where the gap exceeds
              QWEN3_BF16_MARGIN, a profiler window over stage b's fused
-             steps, peak memory, then the 0.1 check in f32 on a depth-cut
-             copy of stage b (its first QWEN3_F32_LAYERS layers, full
-             width, 22 GB).
+             steps, ``graphs_vs_eager`` and ``path_summary`` on stage b,
+             peak memory (allocated under QWEN3_PEAK_LIMIT), then the 0.1
+             check in f32 on a depth-cut copy of stage b (its first
+             QWEN3_F32_LAYERS layers, full width, 22 GB).
 7. forward_olmo — full-width olmo-1b (GQA group 1 at hd 128, the
              non-parametric LayerNorm) in bf16: a prefill and 8 teacher-
              forced decode steps against ``forward`` (max logit error
@@ -93,9 +114,14 @@ non-zero exit code and no ``ok`` line:
              per executed batch, every arrival must be done or still
              queued, at least 95 % done, and every done request must obey
              cascade semantics against the certainties the kernel gave it.
-             The same plan and trace on the discrete-event simulator, a
-             profiled repeat (device busy and idle share) and a real run at
-             the reference's default 2000 qps (numbers only) follow.
+             Before it, every bucket graph of every engine (captured by the
+             warm-up of profiling) is replayed against a direct eager
+             ``apply_tiny``, bit for bit; after it, the engines must hold
+             one graph per bucket and no more. The same plan and trace on
+             the discrete-event simulator, a profiled repeat (device busy
+             and idle share) and a real run at the reference's default
+             2000 qps (numbers only) follow, and ``serve_tiny_fidelity``
+             puts real p95 beside the simulator's at both loads.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -163,6 +189,7 @@ OLMO_ARCH = "olmo-1b"
 QWEN3_BF16_MARGIN = 0.5       # bf16 teacher-forced margin, 64 layers
 QWEN3_BF16_CHECKED = 8        # stage-b requests held at that margin
 QWEN3_F32_LAYERS = 8          # depth of the f32 copy of qwen3-32b (22 GB)
+QWEN3_PEAK_LIMIT = 79e9       # bytes allocated at most in that phase
 # bf16 decode / prefill vs forward logits: logits of std ~0.9 rounded to
 # bf16 (2^-9 relative) after 16 layers of bf16 GEMM outputs, whose shapes
 # differ between the paths; the largest of ~1.8 M differences
@@ -177,7 +204,13 @@ TINY_QPS_STRESS = 2000.0      # the reference's default --qps-max
 TINY_BATCH = 64               # top2gap row timed at the classifier shape
 
 
+CARD = ""   # the nvidia-smi name and power limit, set by phase_device
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the card it was measured on."""
+    if "phase" in obj and CARD:
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -236,6 +269,8 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     check(len(smi) >= 1, "nvidia-smi lists a card")
+    global CARD
+    CARD = smi[0]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -627,19 +662,25 @@ def _timed(eng: SlotEngine, log: dict) -> None:
     """Wraps a SlotEngine's prefill and decode calls with wall timers
     (each call already ends in a device-to-host copy). A bucketed prefill
     is logged by its (batch x length) bucket, an exact-length one by its
-    prompt length."""
+    prompt length; calls that replayed a graph are logged again under
+    ``*_replayed`` (the others are a key's first call: its eager warm-up
+    and capture, or an exact-length eager prefill)."""
     decode = eng.decode_fused
     if model_lib.bucketed_prefill_supported(eng.cfg):
         prefill = eng.prefill_batch
 
         def prefill_t(prompts):
             torch.cuda.synchronize()
+            replays = eng.graphs.replays
             t0 = time.perf_counter()
             res = prefill(prompts)
             dt = (time.perf_counter() - t0) * 1e3
             bb = eng._batch_bucket(len(prompts))
             lb = eng._len_bucket(max(len(p) for p in prompts))
             log["prefill"].setdefault(f"{bb}x{lb}", []).append(dt)
+            if eng.graphs.replays > replays:
+                log["prefill_replayed"].setdefault(f"{bb}x{lb}",
+                                                   []).append(dt)
             return res
         eng.prefill_batch = prefill_t
     else:
@@ -656,21 +697,30 @@ def _timed(eng: SlotEngine, log: dict) -> None:
 
     def decode_t(k=1, mode="ewma", beta=0.35):
         torch.cuda.synchronize()
+        replays = eng.graphs.replays
         t0 = time.perf_counter()
         res = decode(k, mode=mode, beta=beta)
-        log["step_ms"].append((time.perf_counter() - t0) * 1e3 / k)
+        dt = (time.perf_counter() - t0) * 1e3 / k
+        log["step_ms"].append(dt)
+        if eng.graphs.replays > replays:
+            log["step_ms_replayed"].append(dt)
+        log["ks"].add(k)
         return res
 
     eng.decode_fused = decode_t
 
 
 def _ms_medians(log: dict) -> dict:
+    def by_shape(d):
+        return {k: statistics.median(v) for k, v in sorted(
+            d.items(), key=lambda kv: [int(x) for x in kv[0].split("x")])}
     return {"step_ms_median": statistics.median(log["step_ms"])
             if log["step_ms"] else None,
-            "prefill_ms_median": {k: statistics.median(v) for k, v in
-                                  sorted(log["prefill"].items(),
-                                         key=lambda kv: [int(x) for x in
-                                                         kv[0].split("x")])}}
+            "step_ms_median_replayed":
+                statistics.median(log["step_ms_replayed"])
+                if log["step_ms_replayed"] else None,
+            "prefill_ms_median": by_shape(log["prefill"]),
+            "prefill_ms_median_replayed": by_shape(log["prefill_replayed"])}
 
 
 def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
@@ -708,7 +758,8 @@ def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
 
     stages = [SlotEngine(m, params[m], cfgs[m], N_SLOTS, MAX_LEN,
                          device=dev) for m in ("a", "b")]
-    logs = {m: {"prefill": {}, "step_ms": []} for m in ("a", "b")}
+    logs = {m: {"prefill": {}, "prefill_replayed": {}, "step_ms": [],
+                "step_ms_replayed": [], "ks": set()} for m in ("a", "b")}
     for e in stages:
         _timed(e, logs[e.name])
     te = TokenEngine(stages, _gear(["a", "b"], [thr]),
@@ -731,11 +782,13 @@ def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
     # top level; two archs: per stage only (``by_stage``)
     pooled = {}
     if cfgs["a"].name == cfgs["b"].name:
-        both = {"prefill": {}, "step_ms": logs["a"]["step_ms"]
-                + logs["b"]["step_ms"]}
-        for log in logs.values():
-            for k, v in log["prefill"].items():
-                both["prefill"].setdefault(k, []).extend(v)
+        both = {key: logs["a"][key] + logs["b"][key]
+                for key in ("step_ms", "step_ms_replayed")}
+        for key in ("prefill", "prefill_replayed"):
+            both[key] = {}
+            for log in logs.values():
+                for k, v in log[key].items():
+                    both[key].setdefault(k, []).extend(v)
         pooled = {**_ms_medians(both),
                   "param_bytes_per_stage": param_bytes["a"],
                   "weight_read_bound_step_ms": param_bytes["a"]
@@ -763,10 +816,16 @@ def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
             **_ms_medians(logs[e.name]),
             "param_bytes": param_bytes[e.name],
             "weight_read_bound_step_ms": param_bytes[e.name]
-            / HBM_BYTES_PER_S * 1e3} for e in stages},
+            / HBM_BYTES_PER_S * 1e3,
+            "fused_k": sorted(logs[e.name]["ks"]),
+            "compile_counts": e.compile_counts(),
+            "graphs": e.graphs.captured,
+            "graph_replays": e.graphs.replays,
+            "capture_seconds": e.graphs.capture_seconds} for e in stages},
         "launches": launches,
     }
     emit(summary)
+    _check_compile_counts(stages, logs)
 
     check(launches["top2gap"] == st["decode_steps"] + st["prefill_calls"]
           and launches["top2gap"] > 0,
@@ -781,6 +840,36 @@ def serve_cascade(dev, arch: str, phase: str, arch_b: str = ""):
                   for g in gs), "gaps finite and >= 0")
     check(n_a >= 1 and n_b >= 1, f"both outcomes: {n_a} at a, {n_b} at b")
     return summary, params, cfgs, reqs, cal, out
+
+
+def _check_compile_counts(stages, logs) -> None:
+    """Each stage's graphs are the shapes it served and no more, within
+    the bucket grid: one bucketed prefill graph per (batch, length) bucket
+    it prefilled (or, on the exact-length path, one count per distinct
+    prompt length and no graph), one fused decode graph per k it ran, no
+    reference decode; every counted key but the eager prefills is a
+    captured graph."""
+    for e in stages:
+        cc = e.compile_counts()
+        shapes = e.stats.prefill_shapes
+        grid = len(e.len_buckets) * len(e.batch_buckets)
+        if model_lib.bucketed_prefill_supported(e.cfg):
+            check(cc["bucketed_prefill"] == len(shapes) <= grid
+                  and cc["reference_prefill"] == 0,
+                  f"{e.name}: bucketed prefill graphs {cc} == served "
+                  f"buckets {sorted(shapes)} <= grid {grid}")
+        else:
+            check(cc["bucketed_prefill"] == 0 and cc["reference_prefill"]
+                  == len({n for _, n in shapes}),
+                  f"{e.name}: exact-length prefills {cc} == distinct "
+                  f"lengths of {sorted(shapes)}")
+        ks = logs[e.name]["ks"]
+        check(cc["fused_decode"] == len(ks) <= SPEC_K
+              and cc["reference_decode"] == 0,
+              f"{e.name}: fused decode graphs {cc} == the k values run "
+              f"{sorted(ks)}")
+        check(e.graphs.captured == cc["total"] - cc["reference_prefill"],
+              f"{e.name}: every counted key is a captured graph")
 
 
 def _check_attention_launches(summary: dict) -> None:
@@ -798,6 +887,7 @@ def _check_attention_launches(summary: dict) -> None:
 
 
 def phase_serve(dev) -> dict:
+    torch.cuda.reset_peak_memory_stats()
     summary, params, cfgs, reqs, cal, out = serve_cascade(dev, ARCH,
                                                           "serve")
     cfg = cfgs["a"]
@@ -805,6 +895,9 @@ def phase_serve(dev) -> dict:
     _check_attention_launches(summary)
     phase_reference(dev, params["a"], cfg, reqs, cal)
     summary["trace"] = phase_trace(dev, params, cfg, reqs, "trace")
+    graphs = phase_graphs(dev, params["a"], cfg, "serve")
+    phase_graphs(dev, params["a"], cfg, "serve_reference", reference=True)
+    _path_summary("serve", summary, summary["trace"], graphs)
     return summary
 
 
@@ -835,6 +928,8 @@ def phase_serve_ssm(dev) -> dict:
     _teacher_forced_check(params, cfgs, reqs, out, "serve_ssm",
                           enforce_at=SSM_BF16_MARGIN)
     summary["trace"] = phase_trace(dev, params, cfg, reqs, "trace_ssm")
+    graphs = phase_graphs(dev, params["a"], cfg, "serve_ssm")
+    _path_summary("serve_ssm", summary, summary["trace"], graphs)
     summary["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "memory_ssm",
           "max_memory_allocated_bytes": summary["max_memory_allocated_bytes"],
@@ -868,11 +963,18 @@ def phase_serve_qwen3(dev) -> dict:
                           enforce_at=QWEN3_BF16_MARGIN)
     summary["trace"] = phase_trace(dev, params, cfgs["b"], reqs,
                                    "trace_qwen3", stage="b")
+    graphs = phase_graphs(dev, params["b"], cfgs["b"], "serve_qwen3",
+                          stage="b")
+    _path_summary("serve_qwen3", summary, summary["trace"], graphs)
     summary["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "memory_qwen3",
           "max_memory_allocated_bytes": summary["max_memory_allocated_bytes"],
+          "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+          "limit_bytes": QWEN3_PEAK_LIMIT,
           "param_bytes_by_stage": {m: v["param_bytes"] for m, v in
                                    summary["by_stage"].items()}})
+    check(summary["max_memory_allocated_bytes"] < QWEN3_PEAK_LIMIT,
+          f"qwen3-32b phase peak memory under {QWEN3_PEAK_LIMIT} bytes")
     cut = dataclasses.replace(cfgs["b"], num_layers=QWEN3_F32_LAYERS)
     p32 = _depth_cut_f32(params.pop("b"), QWEN3_F32_LAYERS)
     del params
@@ -992,6 +1094,189 @@ def phase_reference(dev, params, cfg, reqs, fused, n_req: int = 4,
     check(compared > 0, "reference tokens compared with the fused run")
 
 
+# ---------------------------------------------------------------------------
+# graph replays against direct eager calls
+# ---------------------------------------------------------------------------
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _equal(a, b) -> bool:
+    """Nested dicts and lists of tensors, bit for bit and dtype for
+    dtype."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _prefill_vs_eager(eng: SlotEngine, prompts) -> bool:
+    """One join through the engine's bucketed prefill against
+    ``prefill_bucketed`` and the top2gap reduction called eagerly on the
+    same padded batch: first tokens and gaps, and the joiners' pool lanes
+    against the eager cache rows, bit for bit. Returns whether the call
+    replayed a graph."""
+    n = len(prompts)
+    bb = eng._batch_bucket(n)
+    lb = eng._len_bucket(max(p.size for p in prompts))
+    arr = np.zeros((bb, lb), np.int32)
+    lens = np.ones((bb,), np.int32)
+    for i, p in enumerate(prompts):
+        arr[i, :p.size] = p
+        lens[i] = p.size
+    logits, cache1 = model_lib.prefill_bucketed(eng.params, eng.cfg, arr,
+                                                lens, cache_len=eng.max_len)
+    gap, idx = top2gap(logits)
+    replays = eng.graphs.replays
+    slots, toks, gaps = eng.prefill_batch(prompts)
+    rows = torch.as_tensor(slots, device=eng.device)
+    check(np.array_equal(toks, idx[:n].cpu().numpy())
+          and np.array_equal(gaps, gap[:n].cpu().numpy()),
+          f"bucketed prefill {bb}x{lb}: tokens and gaps equal the eager "
+          f"call's")
+    check(all(torch.equal(leaf[:, rows], new[name][:, :n])
+              for pool, new in zip(eng.cache["blocks"], cache1["blocks"])
+              for name, leaf in pool.items()),
+          f"bucketed prefill {bb}x{lb}: pool lanes equal the eager cache")
+    return eng.graphs.replays == replays + 1
+
+
+def _fused_vs_eager(eng: SlotEngine, k: int) -> bool:
+    """k fused steps through the engine against ``decode_fused_steps``
+    called eagerly on a clone of the engine's state (pool, tokens,
+    positions, active mask, fold): token, gap and certainty traces and the
+    state after the call, bit for bit. Returns whether it replayed."""
+    active = torch.from_numpy(eng.active).to(eng.device)
+    tt, gt, ct, tok, cache, pos, fold = model_lib.decode_fused_steps(
+        eng.params, eng.cfg, eng.dev_tok.clone(), _clone(eng.cache),
+        eng.dev_pos.clone(), active, _clone(eng._fold), k=k)
+    replays = eng.graphs.replays
+    out = eng.decode_fused(k)
+    check(all(np.array_equal(got, want.cpu().numpy())
+              for got, want in zip(out, (tt, gt, ct))),
+          f"fused decode k={k}: token, gap and certainty traces equal the "
+          f"eager call's")
+    check(torch.equal(eng.dev_tok, tok) and torch.equal(eng.dev_pos, pos)
+          and _equal(eng._fold, fold) and _equal(eng.cache, cache),
+          f"fused decode k={k}: state equals the eager call's")
+    return eng.graphs.replays == replays + 1
+
+
+def _reference_vs_eager(eng: SlotEngine, nxt: dict):
+    """One reference decode step through the engine against
+    ``decode_step`` and the top2gap reduction called eagerly on a clone of
+    the pool. Returns (whether it replayed, the engine's output)."""
+    toks = np.zeros((eng.n_slots, 1), np.int32)
+    for s, t in nxt.items():
+        toks[s, 0] = t
+    logits, cache = model_lib.decode_step(
+        eng.params, eng.cfg, toks, _clone(eng.cache),
+        torch.from_numpy(eng.pos).to(eng.device))
+    gap, idx = top2gap(logits)
+    idx, gap = idx.cpu().numpy(), gap.cpu().numpy()
+    replays = eng.graphs.replays
+    out = eng.decode(nxt)
+    check(all(t == int(idx[s]) and g == float(gap[s])
+              for s, (t, g) in out.items()) and _equal(eng.cache, cache),
+          "reference decode: tokens, gaps and pool equal the eager call's")
+    return eng.graphs.replays == replays + 1, out
+
+
+def phase_graphs(dev, params, cfg, path: str, stage: str = "a",
+                 reference: bool = False) -> dict:
+    """A fresh engine's captured entry points replayed against direct
+    eager calls of the same ``models/model.py`` functions on a cloned copy
+    of the same state, bit for bit. Fused: three joins of two prompts of
+    129-200 tokens (one (2, 256) bucket; the first join is the bucket's
+    warm-up; exact-length eager prefills on the SSM path), then three
+    fused calls at k 1 and three at SPEC_K. Reference: three batch-1
+    joins, then three decode steps. The first call of a key is its eager
+    warm-up; every key is then replayed and compared at least twice, on
+    new inputs each time (the slots fill and the positions advance), so
+    the static inputs and the tensor maps baked into the flash kernel's
+    launches carry new data."""
+    rng = np.random.default_rng(5)
+    eng = SlotEngine(stage, params, cfg, N_SLOTS, MAX_LEN, device=dev)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size, int(rng.integers(
+            129, PROMPT_HI + 1))).astype(np.int32)
+
+    compared = {}
+    if reference:
+        nxt = {}
+        for _ in range(3):
+            slot, tok, _ = eng.prefill_into_slot(prompt())
+            nxt[slot] = tok
+        compared["reference_decode"] = 0
+        for _ in range(3):
+            replayed, out = _reference_vs_eager(eng, nxt)
+            compared["reference_decode"] += replayed
+            nxt = {s: t for s, (t, _) in out.items()}
+    else:
+        if model_lib.bucketed_prefill_supported(cfg):
+            compared["bucketed_prefill"] = sum(
+                _prefill_vs_eager(eng, [prompt(), prompt()])
+                for _ in range(3))
+        else:
+            for _ in range(3):
+                eng.prefill_batch([prompt(), prompt()])
+        for k in (1, SPEC_K):
+            compared[f"fused_decode_k{k}"] = sum(
+                _fused_vs_eager(eng, k) for _ in range(3))
+    torch.cuda.synchronize()
+    row = {"phase": "graphs_vs_eager", "path": path, "arch": cfg.name,
+           "stage": stage, "replays_compared": compared,
+           "compile_counts": eng.compile_counts(),
+           "graphs": eng.graphs.captured, "replays": eng.graphs.replays,
+           "capture_seconds": eng.graphs.capture_seconds}
+    emit(row)
+    check(all(n >= 2 for n in compared.values()),
+          f"{path}: every captured entry point replayed and compared at "
+          f"least twice ({compared})")
+    return row
+
+
+def _path_summary(path: str, summary: dict, trace: dict,
+                  graphs: dict) -> None:
+    """The per-path numbers of compiled steps on one line: served step and
+    prefill ms (host wall, medians) of the traced stage beside the trace
+    window's device ms and host launch calls per step, graphs and capture
+    seconds over the serve run's engines, peak memory and tokens/s."""
+    st = summary["by_stage"][trace["stage"]]
+    emit({"phase": "path_summary", "path": path, "arch": trace["arch"],
+          "stage": trace["stage"],
+          "served_step_ms_median": st["step_ms_median"],
+          "served_step_ms_median_replayed": st["step_ms_median_replayed"],
+          "served_prefill_ms_median": st["prefill_ms_median"],
+          "served_prefill_ms_median_replayed":
+              st["prefill_ms_median_replayed"],
+          "trace_wall_ms_per_step": trace["wall_ms_per_step"],
+          "device_ms_per_step": trace["device_busy_ms_per_step"],
+          "idle_share": trace["idle_share"],
+          "host_launch_calls_per_step": trace["host_launch_calls_per_step"],
+          "device_kernels_per_step": trace["kernel_launches_per_step"],
+          "prefill_bucket": trace["prefill_bucket"],
+          "prefill_wall_ms_profiled": trace["prefill_profiled"]["wall_ms"],
+          "prefill_device_ms": trace["prefill_profiled"]["device_busy_ms"],
+          "prefill_host_launch_calls":
+              trace["prefill_profiled"]["host_launch_calls"],
+          "graphs_served": {m: v["graphs"]
+                            for m, v in summary["by_stage"].items()},
+          "capture_seconds_served": {m: v["capture_seconds"]
+                                     for m, v in summary["by_stage"].items()},
+          "graphs_checked": graphs["graphs"],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+          "tokens_per_s": summary["tokens_per_s"]})
+
+
 def _device_kernels(prof, per: int) -> list:
     """(device ms, launches, name) of each kernel in a torch.profiler
     window, divided by ``per``, the longest first."""
@@ -1008,14 +1293,32 @@ def _device_kernels(prof, per: int) -> list:
     return kernels
 
 
+def _host_api(prof, per: int) -> dict:
+    """Host calls into the CUDA runtime and driver in a torch.profiler
+    window, by name, divided by ``per``: kernel and graph launches,
+    copies, synchronisations."""
+    from torch.autograd import DeviceType
+    return {e.key: e.count / per for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+
+
+def _launch_calls(api: dict) -> float:
+    """Kernel and graph launches among the host's CUDA API calls."""
+    return sum(n for name, n in api.items() if "Launch" in name)
+
+
 def phase_trace(dev, params, cfg, reqs, phase: str, n_steps: int = 8,
                 stage: str = "a") -> dict:
     """A torch.profiler window over fused decode steps of one stage with
     every slot resident: device-busy share of the step and the kernels
-    that take the time (measurement only; nothing is checked). The
-    prefill that fills the slots is timed on the host clock; after the
-    decode window the slots are released and the same prompts prefilled
-    again inside a second profiler window, for the prefill's device
+    that take the time, and the host's CUDA API calls per step (with
+    graphs, one ``cudaGraphLaunch`` a step where eager PyTorch made one
+    ``cudaLaunchKernel`` per kernel); measurement only, nothing is
+    checked. The first step, outside the window, is the fused graph's
+    warm-up and capture. The prefill that fills the slots (the bucket's
+    warm-up and capture) is timed on the host clock; after the decode
+    window the slots are released and the same prompts prefilled again
+    inside a second profiler window (a replay), for the prefill's device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1040,6 +1343,7 @@ def phase_trace(dev, params, cfg, reqs, phase: str, n_steps: int = 8,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kernels = _device_kernels(prof, n_steps)
+    api = _host_api(prof, n_steps)
     busy = sum(k[0] for k in kernels)
     for slot in np.flatnonzero(eng.active):
         eng.release(int(slot))
@@ -1050,14 +1354,21 @@ def phase_trace(dev, params, cfg, reqs, phase: str, n_steps: int = 8,
         torch.cuda.synchronize()
         pwall_ms = (time.perf_counter() - t0) * 1e3
     pkernels = _device_kernels(pprof, 1)
+    papi = _host_api(pprof, 1)
     pbusy = sum(k[0] for k in pkernels)
-    row = {"phase": phase, "arch": cfg.name, "steps": n_steps,
+    row = {"phase": phase, "arch": cfg.name, "stage": stage,
+           "steps": n_steps,
            "batch": N_SLOTS, "prefill_bucket": bucket,
            "prefill_ms": prefill_ms,
            "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy if kernels else None,
            "idle_share": 1.0 - busy / wall_ms if kernels else None,
            "kernel_launches_per_step": sum(k[1] for k in kernels),
+           "host_launch_calls_per_step": _launch_calls(api),
+           "host_cuda_api_per_step": api,
+           "graphs": eng.graphs.captured,
+           "capture_seconds": eng.graphs.capture_seconds,
+           "compile_counts": eng.compile_counts(),
            "top": [{"ms_per_step": t, "launches_per_step": c,
                     "kernel": name[:90]} for t, c, name in kernels[:12]],
            "prefill_profiled": {
@@ -1065,6 +1376,8 @@ def phase_trace(dev, params, cfg, reqs, phase: str, n_steps: int = 8,
                "device_busy_ms": pbusy if pkernels else None,
                "idle_share": 1.0 - pbusy / pwall_ms if pkernels else None,
                "kernel_launches": sum(k[1] for k in pkernels),
+               "host_launch_calls": _launch_calls(papi),
+               "host_cuda_api": papi,
                "top": [{"ms": t, "launches": c, "kernel": name[:90]}
                        for t, c, name in pkernels[:12]]}}
     emit(row)
@@ -1384,6 +1697,42 @@ def _des_run(S, plan, profiles, trace, qps: float) -> dict:
     return out
 
 
+def _tiny_graphs_vs_eager(backend, TY) -> dict:
+    """Every bucket graph of every classifier engine replayed against a
+    direct eager call of ``apply_tiny`` on the same padded batch, bit for
+    bit, twice per bucket: a full batch and the smallest batch that the
+    engine pads to that bucket. The graphs were captured by the engines'
+    warm-up during profiling."""
+    rng = np.random.default_rng(6)
+    compared, graphs, capture_s = {}, {}, {}
+    for cfg in TY.TINY_FAMILY:
+        eng = backend.engines[cfg.name]
+        before = eng.graphs.replays
+        for lo, b in zip((0,) + eng.buckets, eng.buckets):
+            for n in (b, lo + 1):
+                tok = np.zeros((b, cfg.seq_len), np.int32)
+                tok[:n] = rng.integers(0, cfg.vocab, (n, cfg.seq_len))
+                with torch.no_grad():
+                    want = TY.apply_tiny(cfg, eng.params, torch.from_numpy(
+                        tok).to(eng.device))[:n]
+                check(torch.equal(eng.infer(tok[:n]), want),
+                      f"{cfg.name} bucket {b}, {n} rows: graph scores equal "
+                      f"the eager call's")
+        compared[cfg.name] = eng.graphs.replays - before
+        graphs[cfg.name] = eng.graphs.captured
+        capture_s[cfg.name] = eng.graphs.capture_seconds
+    row = {"phase": "graphs_vs_eager", "path": "serve_tiny",
+           "replays_compared": compared, "graphs": graphs,
+           "capture_seconds": capture_s}
+    emit(row)
+    for cfg in TY.TINY_FAMILY:
+        buckets = backend.engines[cfg.name].buckets
+        check(compared[cfg.name] == 2 * len(buckets)
+              and graphs[cfg.name] == len(buckets),
+              f"{cfg.name}: one graph per bucket, each replayed")
+    return row
+
+
 def phase_serve_tiny(dev) -> dict:
     """The paper's Fig. 3 lifecycle on the card through
     ``repro_torch.launch.serve``'s own functions. Returns the launch
@@ -1420,6 +1769,7 @@ def phase_serve_tiny(dev) -> dict:
           "accuracy": {n: p.accuracy for n, p in profiles.items()}})
     check(all(np.all(p.batch_runtimes > 0) for p in profiles.values()),
           "profiled runtimes positive")
+    graphs = _tiny_graphs_vs_eager(backend, TY)
 
     mem_name, mem = S.device_memory(dev)
     hw = HardwareSpec(num_devices=TINY_DEVICES,
@@ -1462,16 +1812,34 @@ def phase_serve_tiny(dev) -> dict:
           f"{real['executed_batches']}")
     check(all(v == 0 for k, v in real["launches"].items()
               if k != "top2gap"), "no other kernel on the classifier path")
-    _des_run(S, plan, profiles, trace, TINY_QPS)
+    check(all(len(e.graphs) == e.graphs.captured == len(e.buckets)
+              for e in backend.engines.values()),
+          "the served batches used the warm-up's bucket graphs only")
+    des = _des_run(S, plan, profiles, trace, TINY_QPS)
 
-    emit(_real_run(S, plan, backend, trace, TINY_QPS, "serve_tiny_profiled",
-                   profile=True)[0])
+    profiled = _real_run(S, plan, backend, trace, TINY_QPS,
+                         "serve_tiny_profiled", profile=True)[0]
+    emit(profiled)
 
     plan_hi = plan_for(TINY_QPS_STRESS)
     trace_hi = S.make_trace("azure", TINY_TRACE_S, TINY_QPS_STRESS)
-    emit(_real_run(S, plan_hi, backend, trace_hi, TINY_QPS_STRESS,
-                   "serve_tiny_real")[0])
-    _des_run(S, plan_hi, profiles, trace_hi, TINY_QPS_STRESS)
+    real_hi = _real_run(S, plan_hi, backend, trace_hi, TINY_QPS_STRESS,
+                        "serve_tiny_real")[0]
+    emit(real_hi)
+    des_hi = _des_run(S, plan_hi, profiles, trace_hi, TINY_QPS_STRESS)
+    emit({"phase": "serve_tiny_fidelity",
+          "by_qps": {str(q): {"real_p95_ms": r.get("p95_ms"),
+                              "des_p95_ms": d["p95_ms"],
+                              "real_over_des": r["p95_ms"] / d["p95_ms"]
+                              if r.get("p95_ms") and d["p95_ms"] else None,
+                              "real_done": r["done"], "des_done": d["done"],
+                              "offered": r["offered"],
+                              "batch_ms_median": r["batch_ms_median"]}
+                     for q, r, d in ((TINY_QPS, real, des),
+                                     (TINY_QPS_STRESS, real_hi, des_hi))},
+          "device_idle_share_60qps": profiled.get("idle_share"),
+          "graphs": graphs["graphs"],
+          "capture_seconds": graphs["capture_seconds"]})
     return real["launches"]
 
 

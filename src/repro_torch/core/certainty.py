@@ -202,13 +202,15 @@ def device_fold_update(state: FoldState, gap: torch.Tensor, beta: float
     gap = gap.float()
     count = state["count"] + 1
     first = state["count"] == 0
-    beta32 = torch.tensor(beta, dtype=torch.float32, device=gap.device)
+    # a Python float: the product runs in f32 as with an f32 scalar tensor,
+    # and no host-to-device copy enters a captured CUDA graph
     return {
         "count": count,
         "mean": state["mean"] + (gap - state["mean"]) / count.float(),
         "min": torch.minimum(state["min"], gap),
         "ewma": torch.where(first, gap,
-                            state["ewma"] + beta32 * (gap - state["ewma"])),
+                            state["ewma"] + float(beta)
+                            * (gap - state["ewma"])),
     }
 
 
@@ -224,13 +226,14 @@ def device_fold_value(state: FoldState, mode: str) -> torch.Tensor:
 def device_fold_set_rows(state: FoldState, rows: torch.Tensor,
                          gap: torch.Tensor) -> FoldState:
     """Reset ``rows`` to a one-token fold seeded with ``gap`` — the join
-    path (the prefill emits each request's first token and gap)."""
+    path (the prefill emits each request's first token and gap). Writes
+    ``state`` IN PLACE and returns it: the engine's fold tensors keep their
+    addresses, which its captured decode graphs read."""
     gap = gap.float()
-    out = {n: t.clone() for n, t in state.items()}
-    out["count"][rows] = 1
+    state["count"][rows] = 1
     for n in ("mean", "min", "ewma"):
-        out[n][rows] = gap
-    return out
+        state[n][rows] = gap
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,15 @@ mamba_scan       — the Mamba-1 selective scan of an SSM prefill
 
 Each wrapper runs its plain version (``ref``) for a CPU tensor and its
 kernel for a CUDA tensor, and counts the kernel's launches in its
-``launches`` attribute. ``build`` compiles ``csrc/*.cu`` with nvcc.
+``launches`` attribute (``counts``); a replay of a CUDA graph that holds
+the kernel counts too, once per launch it replays. ``build`` compiles
+``csrc/*.cu`` with nvcc.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import counts as _counts
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _mamba
@@ -35,5 +38,4 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    _counts.reset(WRAPPERS.values())

@@ -1,0 +1,58 @@
+"""Launch counts of the kernel wrappers, graph replays included.
+
+Each wrapper calls ``launched(wrapper)`` where it launches its kernel; the
+count is the wrapper's integer ``launches`` attribute. A CUDA graph replay
+runs no Python, so ``serving/graphs.py`` captures a call inside
+``recording()``: while the capturing thread records, a wrapper's launch is
+only noted in the recording (a capture launches nothing), and
+``replayed(recording)`` adds those launches to the counts at every replay.
+The server's consumer threads launch concurrently, so every update takes
+one lock; a recording belongs to the thread that captures.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, Dict, Iterator
+
+__all__ = ["launched", "recording", "replayed", "reset"]
+
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def launched(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel (or note it in this
+    thread's recording while it captures)."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+        return
+    with _lock:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[Callable, int]]:
+    """Note, instead of count, this thread's launches: {wrapper: n}."""
+    prev = getattr(_local, "recording", None)
+    rec: Dict[Callable, int] = {}
+    _local.recording = rec
+    try:
+        yield rec
+    finally:
+        _local.recording = prev
+
+
+def replayed(rec: Dict[Callable, int]) -> None:
+    """Count the launches of one replay of a graph captured as ``rec``."""
+    with _lock:
+        for wrapper, n in rec.items():
+            wrapper.launches += n
+
+
+def reset(wrappers) -> None:
+    """Zero the counts of ``wrappers``."""
+    with _lock:
+        for wrapper in wrappers:
+            wrapper.launches = 0

@@ -291,10 +291,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      int C, long long k_sb, long long k_sc, long long v_sb,
                      long long v_sc, cudaStream_t stream) {
   constexpr int smem = Geo<T, D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
+  // once per instantiation (at its first, eager launch), not at every
+  // launch: a launch inside a CUDA-graph capture then makes no other API
+  // call
+  static const cudaError_t allowed = cudaFuncSetAttribute(
       decode_kernel<TQ, T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (err != cudaSuccess) return err;
+  if (allowed != cudaSuccess) return allowed;
   const dim3 grid(KV * kSplit, B);
   decode_kernel<TQ, T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),

@@ -720,16 +720,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int window, cudaStream_t stream) {
   using G = Geo<D>;
   if (encoder() == nullptr) return cudaErrorNotSupported;
+  // The tensor maps are encoded on the host and passed by value, so a
+  // CUDA graph that captures this launch keeps them, with the addresses
+  // of q, k, v and out baked in. That is right only because every tensor
+  // a captured call passes here has a fixed address in its engine's graph
+  // pool, which each replay overwrites in place.
   CUtensorMap tq, tk, tv, to;
   if (!make_map<D>(&tq, q, B, S, H, q_sb, q_ss)
       || !make_map<D>(&tk, k, B, S, KV, k_sb, k_ss)
       || !make_map<D>(&tv, v, B, S, KV, v_sb, v_ss)
       || !make_map<D>(&to, out, B, S, H, o_sb, o_ss))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
+  // once per instantiation (at its first, eager launch), not at every
+  // launch
+  static const cudaError_t allowed = cudaFuncSetAttribute(
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
-  if (err != cudaSuccess) return err;
+  if (allowed != cudaSuccess) return allowed;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
   flash_bf16_kernel<D><<<grid, kThreads, G::SMEM, stream>>>(
       tq, tk, tv, to, S, H, KV, causal, window,

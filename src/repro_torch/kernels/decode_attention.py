@@ -16,7 +16,7 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, counts, ref
 
 __all__ = ["decode_attention", "MAX_GROUP", "HEAD_DIMS"]
 
@@ -85,7 +85,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    counts.launched(decode_attention)
     return out
 
 

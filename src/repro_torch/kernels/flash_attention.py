@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, counts, ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
@@ -71,7 +71,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), int(window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    counts.launched(flash_attention)
     return out
 
 

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, counts, ref
 
 __all__ = ["mamba_scan", "STATE_SIZES"]
 
@@ -87,7 +87,7 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
             _X_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "mamba_scan")
-    mamba_scan.launches += 1
+    counts.launched(mamba_scan)
     return y, h_last
 
 

@@ -10,21 +10,17 @@ the greedy token): each step hands the host (B,) tokens and gaps instead of
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, counts, ref
 
 __all__ = ["top2gap", "argmax_gap", "load"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
-# the server's consumer threads launch concurrently: the count's
-# read-modify-write takes a lock
-_count_lock = threading.Lock()
 
 
 def load():
@@ -56,8 +52,7 @@ def top2gap(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                 scores.stride(0), _DTYPES[scores.dtype],
                 torch.cuda.current_stream(scores.device).cuda_stream)
     build.check(rc, "top2gap")
-    with _count_lock:
-        top2gap.launches += 1
+    counts.launched(top2gap)
     return gap, idx
 
 

@@ -17,7 +17,9 @@ Entry points:
   decode_step        — one token against the cache (updated in place)
   decode_fused_steps — k greedy steps with the argmax/top-2-gap reduction
                        and the streaming-certainty fold on the device
-  prefill_bucketed   — right-padded batched prefill
+  prefill_bucketed   — right-padded batched prefill, optionally written
+                       straight into a slot pool
+  widen_ssm_cache    — the SSM conv state's one-time widening
   init_cache         — zero cache
 
 Dense attention and SSM mixers are ported: MoE, encoder-decoder and
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,8 +44,9 @@ from repro_torch.models.common import (Params, apply_ffn, apply_norm,
                                        embed_tokens, lm_logits)
 
 __all__ = ["LayerSpec", "block_pattern", "num_reps", "init_params",
-           "forward", "prefill", "decode_step", "decode_fused_steps",
-           "bucketed_prefill_supported", "prefill_bucketed", "init_cache"]
+           "forward", "prefill", "decode_step", "widen_ssm_cache",
+           "decode_fused_steps", "bucketed_prefill_supported",
+           "prefill_bucketed", "init_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +226,12 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
 def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 caches: Optional[List[Params]] = None, cache_index=None,
-                cache_len: int = 0
+                cache_len: int = 0, sink: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
     """Loop the block pattern over repetitions. ``caches`` (decode) is
     updated in place; prefill returns freshly stacked caches (every leaf a
-    block returns, stacked over repetitions)."""
+    block returns, stacked over repetitions), or, given a ``sink``, hands
+    each layer's cache to ``sink(position, rep, cache)`` and returns none."""
     pattern = block_pattern(cfg)
     reps = num_reps(cfg)
     filled: List[Dict[str, List[torch.Tensor]]] = [{} for _ in pattern]
@@ -239,10 +243,12 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
             x, c_out = _apply_block(spec, _rep(blocks[pos], r), cfg, x,
                                     positions, mode, c_in, cache_index,
                                     cache_len)
-            if mode == "prefill":
+            if mode == "prefill" and sink is not None:
+                sink(pos, r, c_out)
+            elif mode == "prefill":
                 for n, leaf in c_out.items():
                     filled[pos].setdefault(n, []).append(leaf)
-    if mode == "prefill":
+    if mode == "prefill" and sink is None:
         return x, [{n: torch.stack(v) for n, v in f.items()} for f in filled]
     return x, caches
 
@@ -306,11 +312,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     so the JAX engine's pool is widened by its first decode call too."""
     dev = _device(params)
     x = embed_tokens(params["embed"], _tokens(tokens, dev))
-    for blk in cache["blocks"]:
-        if "conv" in blk:
-            wide = torch.promote_types(blk["conv"].dtype, x.dtype)
-            if blk["conv"].dtype != wide:
-                blk["conv"] = blk["conv"].to(wide)
+    widen_ssm_cache(cache, x.dtype)
     b = x.shape[0]
     ci = torch.broadcast_to(torch.as_tensor(cache_index, device=dev), (b,))
     x, _ = _run_blocks(params["blocks"], cfg, x, ci.reshape(b, 1), "decode",
@@ -318,6 +320,19 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)[:, 0]
     return logits, cache
+
+
+def widen_ssm_cache(cache: Params, dtype: torch.dtype) -> None:
+    """Widen, once and in place in the cache dict, every SSM conv state
+    held in a narrower dtype than the activations (``dtype``) to the
+    promoted dtype, as the JAX decode's first call does to its pool. A
+    ``SlotEngine`` calls it eagerly before any decode it captures, so a
+    graph never sees a buffer change its dtype."""
+    for blk in cache["blocks"]:
+        if "conv" in blk:
+            wide = torch.promote_types(blk["conv"].dtype, dtype)
+            if blk["conv"].dtype != wide:
+                blk["conv"] = blk["conv"].to(wide)
 
 
 def decode_fused_steps(params: Params, cfg: ModelConfig,
@@ -375,13 +390,23 @@ def bucketed_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
-                     cache_len: int) -> Tuple[torch.Tensor, Params]:
+                     cache_len: int,
+                     into: Optional[Tuple[Params, torch.Tensor,
+                                          torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Batched prefill over right-padded prompts.
 
     tokens (B, Lb) — prompts padded to a shared length bucket; true_lens
     (B,) — each row's real length (1..Lb). Returns (per-row logits at
     position ``true_lens - 1`` (B, V) f32, cache). Pad K/V beyond a row's
-    true length stays masked by every decode step until overwritten."""
+    true length stays masked by every decode step until overwritten.
+
+    ``into = (pool, src, dst)`` writes each layer's cache, as the layer
+    makes it, into a rep-stacked pool (``init_cache`` layout): batch rows
+    ``src`` (B,) of the prefill go to lanes ``dst`` (B,) of the pool, whole
+    lanes, cast to the pool's dtype; the stacked cache is never built and
+    ``None`` is returned in its place. A ``dst`` lane named twice must get
+    the same ``src`` row (a padded batch repeats its first real row)."""
     if not bucketed_prefill_supported(cfg):
         raise ValueError(
             f"{cfg.name}: bucketed prefill needs an attention-only decoder "
@@ -397,15 +422,23 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
             f"prefill_bucketed: padded length {s} does not fit the "
             f"sliding-window ring ({attn.kv_cache_len(cfg, cache_len)}); "
             f"pads would alias live window slots")
+    sink = None
+    if into is not None:
+        pool, src, dst = into
+
+        def sink(pos, r, c_out):
+            for n, leaf in c_out.items():
+                pool["blocks"][pos][n][r, dst] = \
+                    leaf[src].to(pool["blocks"][pos][n].dtype)
     x, caches = _run_blocks(params["blocks"], cfg, x, positions, "prefill",
-                            cache_len=cache_len)
+                            cache_len=cache_len, sink=sink)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     last_i = torch.clamp(torch.as_tensor(true_lens, device=x.device).long()
                          - 1, 0, s - 1)
     last = x[torch.arange(b, device=x.device), last_i]        # (B, D)
     logits = lm_logits(params["embed"], last[:, None],
                        cfg.tie_embeddings)[:, 0]
-    return logits, {"blocks": caches}
+    return logits, None if into is not None else {"blocks": caches}
 
 
 # ---------------------------------------------------------------------------

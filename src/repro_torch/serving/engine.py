@@ -2,17 +2,25 @@
 (port of ``repro/serving/engine.py``).
 
 The reference compiles one XLA executable per power-of-two batch bucket and
-pads incoming batches up to the bucket (DESIGN.md §3.2). PyTorch runs
-eagerly, so there is nothing to compile; the engine keeps the same buckets,
-the same zero padding and the same split of a batch larger than the last
-bucket, so a profiled batch size costs what the served one does, and
-``warmup`` runs each bucket once. ``infer`` returns the scores as a tensor
-on the params' device only once they exist there (the counterpart of the
-reference's ``block_until_ready``): ``EngineBackend.profile`` times it, and
-that time becomes the planner's ``batch_runtimes``.
+pads incoming batches up to the bucket (DESIGN.md §3.2). The port captures
+one CUDA graph per bucket (``serving/graphs.py``: at the bucket's first
+call, ``warmup`` or the first batch of its size, all of the engine's graphs
+in one memory pool) and replays it; on the CPU the same buckets run
+eagerly. It keeps the reference's buckets, zero padding and split of a
+batch larger than the last bucket, so a profiled batch size costs what the
+served one does. ``infer`` returns the scores as a tensor on the params'
+device only once they exist there (the counterpart of the reference's
+``block_until_ready``): ``EngineBackend.profile`` times it, and that time
+becomes the planner's ``batch_runtimes``.
+
+Two logical devices can host replicas of one model, and then the threaded
+server's consumer threads call the same engine at once: a lock holds each
+call's copy in, replay and copy of the scores out of the graph's static
+output together, so that no replay overwrites another caller's scores.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -22,6 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.convert import tensor_leaves
 from repro_torch.core.execution import EngineBackend, profile_backend
 from repro_torch.core.profiles import ModelProfile, ValidationRecord
+from repro_torch.serving.graphs import GraphCache
 
 __all__ = ["InferenceEngine", "profile_engine"]
 
@@ -47,13 +56,18 @@ class InferenceEngine:
         self._fn = apply_fn
         leaves = tensor_leaves(params)
         self.device = leaves[0].device if leaves else resolve_device("cuda")
+        self.graphs = GraphCache(self.device)
+        self._lock = threading.Lock()
 
     def _run(self, tokens: np.ndarray) -> torch.Tensor:
-        tok = torch.from_numpy(np.ascontiguousarray(tokens)).to(self.device)
-        with torch.no_grad():
-            scores = self._fn(self.params, tok)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        tok = np.ascontiguousarray(tokens)
+        with self._lock, torch.no_grad():
+            (scores,) = self.graphs.run(
+                ("bucket",) + tok.shape + (str(tok.dtype),),
+                lambda t: (self._fn(self.params, t),), tok)
+            if self.device.type == "cuda":
+                scores = scores.clone()
+                torch.cuda.current_stream(self.device).synchronize()
         return scores
 
     def warmup(self, seq_len: int) -> None:

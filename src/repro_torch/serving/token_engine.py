@@ -31,10 +31,22 @@ Two execution modes, as in the JAX engine:
   on the device (the top2gap kernel) and only (B,) tokens and gaps come
   back.
 
-PyTorch runs eagerly, so the JAX engine's per-entry-point executable
-counts (``compile_counts``) have no counterpart; ``stats.prefill_shapes``
-records the same bounded set of padded prefill shapes. The telemetry hooks
-of the JAX engine are not ported yet.
+Compiled steps, as in the JAX engine: on the card every fixed-shape entry
+point runs from a CUDA graph captured at its first call and replayed at
+every later one (``serving/graphs.py``), one graph per key of the JAX
+engine's executable caches, all of one engine's graphs in one memory pool:
+the fused decode per ``(mode, beta, k)``, the reference decode at
+``(n_slots, 1)``, the bucketed prefill per (batch, length) bucket, each
+also keyed by the dtypes of the pool it reads (the JAX executables are
+keyed by their operands' dtypes, and an f32 SSM pool widens its conv state
+at its first decode). The exact-length batch-1 prefill
+(``prefill_into_slot``: the SSM path, the sliding-window ring, reference
+mode) runs eagerly; ``compile_counts`` counts its distinct lengths, as the
+JAX engine compiles one executable per length. For the graphs the
+device-resident state (pool, tokens, positions, active mask, certainty
+fold) is allocated once and only ever written in place. On the CPU the
+same entry points run eagerly and ``compile_counts`` counts the same keys.
+The telemetry hooks of the JAX engine are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ from repro_torch.core.scheduling import (ContinuousBatcher, SchedulerConfig,
                                          SchedulerCore)
 from repro_torch.kernels.top2gap import argmax_gap
 from repro_torch.models import model as model_lib
+from repro_torch.serving.graphs import GraphCache
 
 __all__ = ["SlotEngine", "TokenEngine", "TokenRequest", "TokenResult",
            "SlotEngineStats", "greedy_generate"]
@@ -151,10 +164,37 @@ class SlotEngine:
         self.len_buckets = _pow2_buckets(min(min_len_bucket, max_len),
                                          max_len)
         self.batch_buckets = _pow2_buckets(1, n_slots)
+        self.graphs = GraphCache(self.device)
+        self._prefill_lengths: Set[int] = set()
 
     @property
     def n_active(self) -> int:
         return self.n_slots - len(self.free)
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Graphs per entry point, with the keys and meaning of the JAX
+        engine's executable-cache sizes: the bucketed prefill stays bounded
+        by the bucket grid, while ``reference_prefill`` counts the distinct
+        prompt lengths of the exact-length prefills, which run eagerly and
+        capture no graph."""
+        out = {"reference_prefill": len(self._prefill_lengths),
+               **{e: self.graphs.count(e) for e in (
+                   "reference_decode", "bucketed_prefill", "fused_decode")}}
+        out["total"] = sum(out.values())
+        return out
+
+    def _pool_dtypes(self) -> Tuple[torch.dtype, ...]:
+        return tuple(leaf.dtype for blk in self.cache["blocks"]
+                     for leaf in blk.values())
+
+    def _widen_pool(self) -> Tuple[torch.dtype, ...]:
+        """The pool's dtypes as a decode call finds them (part of its
+        graph key), after widening the SSM conv state eagerly where the
+        params are wider, so that no captured graph ever sees it change."""
+        dtypes = self._pool_dtypes()
+        model_lib.widen_ssm_cache(self.cache,
+                                  self.params["embed"]["embedding"].dtype)
+        return dtypes
 
     def _scatter(self, rows: torch.Tensor, new_cache, n: int) -> None:
         """Write the first ``n`` batch rows of a prefill cache into the
@@ -194,6 +234,7 @@ class SlotEngine:
         self.pos[slot] = prompt.size
         self.active[slot] = True
         self._active_dirty = True
+        self._prefill_lengths.add(int(prompt.size))
         self.stats.prefill_calls += 1
         self.stats.prefill_prompts += 1
         self.stats.prefill_shapes.add((1, int(prompt.size)))
@@ -223,7 +264,7 @@ class SlotEngine:
                                              device=self.device)
         self.dev_tok[rows] = torch.as_tensor(toks.astype(np.int32),
                                              device=self.device)
-        self._fold = device_fold_set_rows(
+        device_fold_set_rows(
             self._fold, rows,
             torch.as_tensor(np.asarray(gaps, np.float32), device=self.device))
         self._active_dirty = True
@@ -264,11 +305,16 @@ class SlotEngine:
         for i, p in enumerate(prompts):
             arr[i, :p.size] = p
             lens[i] = p.size
-        logits, cache1 = model_lib.prefill_bucketed(
-            self.params, self.cfg, arr, lens, cache_len=self.max_len)
-        tok_d, gap_d = argmax_gap(logits)
         slots = [self.free.pop() for _ in range(n)]
-        self._scatter(torch.as_tensor(slots, device=self.device), cache1, n)
+        # prefill row -> pool lane; pad rows repeat the first real row into
+        # its own lane, so the scatter writes one value wherever it writes
+        src = np.zeros(bb, np.int64)
+        src[:n] = np.arange(n)
+        dst = np.full(bb, slots[0], np.int64)
+        dst[:n] = slots
+        tok_d, gap_d = self.graphs.run(
+            ("bucketed_prefill", bb, lb, self._pool_dtypes()),
+            self._bucketed_body, arr, lens, src, dst)
         toks = tok_d[:n].cpu().numpy()
         gaps = gap_d[:n].cpu().numpy()
         plens = lens[:n]
@@ -282,6 +328,15 @@ class SlotEngine:
         self.stats.bytes_to_device += arr.nbytes + lens.nbytes
         self.stats.bytes_to_host += n * 8          # (tok, gap) per joiner
         return slots, toks, gaps
+
+    def _bucketed_body(self, tokens, true_lens, src, dst):
+        """Padded prefill, the argmax/top-2-gap reduction, and the
+        scatter into the pool lanes, layer by layer (no per-bucket cache
+        outlives the call): the captured bucketed prefill."""
+        logits, _ = model_lib.prefill_bucketed(
+            self.params, self.cfg, tokens, true_lens,
+            cache_len=self.max_len, into=(self.cache, src, dst))
+        return argmax_gap(logits)
 
     # ----------------------------------------------------------- leaves
 
@@ -313,10 +368,9 @@ class SlotEngine:
             raise ValueError(f"slot {full} is full ({self.max_len} tokens)")
         toks = np.zeros((self.n_slots, 1), np.int32)
         toks[slots, 0] = vals
-        logits, self.cache = model_lib.decode_step(
-            self.params, self.cfg, toks, self.cache,
-            torch.as_tensor(self.pos, device=self.device))
-        tok_d, gap_d = argmax_gap(logits)
+        tok_d, gap_d = self.graphs.run(
+            ("reference_decode", self._widen_pool()), self._reference_body,
+            toks, self.pos.copy())
         toks_h, gaps_h = tok_d.cpu().numpy(), gap_d.cpu().numpy()
         self.pos[slots] += 1
         self.stats.decode_calls += 1
@@ -324,6 +378,25 @@ class SlotEngine:
         self.stats.bytes_to_device += self.n_slots * 8   # tokens + pos
         self.stats.bytes_to_host += self.n_slots * 8     # tok + gap
         return {int(s): (int(toks_h[s]), float(gaps_h[s])) for s in slots}
+
+    def _reference_body(self, tokens, positions):
+        """One decode step and its argmax/top-2-gap reduction: the
+        captured reference decode."""
+        logits, _ = model_lib.decode_step(self.params, self.cfg, tokens,
+                                          self.cache, positions)
+        return argmax_gap(logits)
+
+    def _fused_body(self, k: int, mode: str, beta: float):
+        """``k`` fused steps whose carried state is written back into
+        the engine's fixed buffers: the captured fused decode."""
+        tt, gt, ct, tok, _, pos, fold = model_lib.decode_fused_steps(
+            self.params, self.cfg, self.dev_tok, self.cache, self.dev_pos,
+            self.dev_active, self._fold, k=k, beta=beta, mode=mode)
+        self.dev_tok.copy_(tok)
+        self.dev_pos.copy_(pos)
+        for name, t in fold.items():
+            self._fold[name].copy_(t)
+        return tt, gt, ct
 
     def decode_fused(self, k: int = 1, mode: str = "ewma",
                      beta: float = 0.35
@@ -343,13 +416,11 @@ class SlotEngine:
                 f"{self.name}: a {k}-step scan overruns a "
                 f"{self.max_len}-token slot")
         if self._active_dirty:
-            self.dev_active = torch.as_tensor(self.active,
-                                              device=self.device)
+            self.dev_active.copy_(torch.from_numpy(self.active))
             self._active_dirty = False
-        (tt, gt, ct, self.dev_tok, self.cache, self.dev_pos,
-         self._fold) = model_lib.decode_fused_steps(
-            self.params, self.cfg, self.dev_tok, self.cache, self.dev_pos,
-            self.dev_active, self._fold, k=k, beta=beta, mode=mode)
+        key = ("fused_decode", mode, float(beta), k, self._widen_pool())
+        tt, gt, ct = self.graphs.run(
+            key, lambda: self._fused_body(k, mode, float(beta)))
         self.pos[self.active] += k
         self.stats.decode_calls += 1
         self.stats.decode_steps += k
@@ -595,4 +666,5 @@ class TokenEngine:
         agg["spec_discarded"] = self.spec_discarded
         agg["prefill_shapes"] = {e.name: sorted(e.stats.prefill_shapes)
                                  for e in self.stages}
+        agg["compiles"] = {e.name: e.compile_counts() for e in self.stages}
         return agg

@@ -30,7 +30,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.top2gap import top2gap
+from repro_torch.kernels.top2gap import argmax_gap, top2gap
 from repro_torch.models import model as TM
 from repro_torch.serving import engine as TE
 from repro_torch.serving import tinymodels as TY
@@ -693,3 +693,219 @@ def test_top2gap_launch_count_exact_under_threads(cuda):
     torch.cuda.synchronize()
     assert not any(t.is_alive() for t in threads)
     assert top2gap.launches - before == n_threads * per_thread
+
+
+# ---------------------------------------------------------------------------
+# Compiled steps: CUDA graph replays against direct eager calls
+# ---------------------------------------------------------------------------
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _equal_trees(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_trees(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_equal_trees, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _graph_engine(cuda, arch, n_slots=4, max_len=64):
+    cfg = get_smoke_config(arch)
+    params = TM.init_params(cfg, seed=3, device=cuda)
+    return TT.SlotEngine("a", params, cfg, n_slots=n_slots, max_len=max_len,
+                         device=cuda)
+
+
+def _check_prefill_replay(eng, prompts):
+    """One bucketed prefill through the engine against ``prefill_bucketed``
+    called eagerly on the same padded batch: first tokens and gaps
+    bit-equal, and the joiners' pool lanes equal to the eager cache rows.
+    Returns whether the call replayed a graph."""
+    n = len(prompts)
+    bb = eng._batch_bucket(n)
+    lb = eng._len_bucket(max(p.size for p in prompts))
+    arr = np.zeros((bb, lb), np.int32)
+    lens = np.ones((bb,), np.int32)
+    for i, p in enumerate(prompts):
+        arr[i, :p.size] = p
+        lens[i] = p.size
+    logits, cache1 = TM.prefill_bucketed(eng.params, eng.cfg, arr, lens,
+                                         cache_len=eng.max_len)
+    etok, egap = argmax_gap(logits)
+    replays = eng.graphs.replays
+    slots, toks, gaps = eng.prefill_batch(prompts)
+    assert np.array_equal(toks, etok[:n].cpu().numpy())
+    assert np.array_equal(gaps, egap[:n].cpu().numpy())
+    rows = torch.as_tensor(slots, device=eng.device)
+    for pool, new in zip(eng.cache["blocks"], cache1["blocks"]):
+        for name, leaf in pool.items():
+            assert torch.equal(leaf[:, rows], new[name][:, :n])
+    return eng.graphs.replays == replays + 1
+
+
+def _check_fused_replay(eng, k, mode="ewma", beta=0.35):
+    """k fused steps through the engine against ``decode_fused_steps``
+    called eagerly on a clone of the engine's state: traces and the state
+    after the call bit-equal. Returns whether the call replayed."""
+    active = torch.from_numpy(eng.active).to(eng.device)
+    tt, gt, ct, tok, cache, pos, fold = TM.decode_fused_steps(
+        eng.params, eng.cfg, eng.dev_tok.clone(), _clone(eng.cache),
+        eng.dev_pos.clone(), active, _clone(eng._fold), k=k, beta=beta,
+        mode=mode)
+    replays = eng.graphs.replays
+    out = eng.decode_fused(k, mode=mode, beta=beta)
+    for got, want in zip(out, (tt, gt, ct)):
+        assert np.array_equal(got, want.cpu().numpy())
+    assert torch.equal(eng.dev_tok, tok) and torch.equal(eng.dev_pos, pos)
+    assert _equal_trees(eng._fold, fold) and _equal_trees(eng.cache, cache)
+    return eng.graphs.replays == replays + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+def test_fused_graphs_match_eager_calls_bit_for_bit(cuda, arch):
+    """Every replay of the bucketed prefill (qwen2) and of the fused decode
+    at k 1 and 3 equals the direct eager call, at least twice each on new
+    inputs; the first call of a key is its eager warm-up."""
+    eng = _graph_engine(cuda, arch)
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
+
+    bucketed = TM.bucketed_prefill_supported(eng.cfg)
+    eng.prefill_batch([prompt(9)])
+    for n in (12, 14):                 # the same (1, 16) bucket
+        if bucketed:
+            assert _check_prefill_replay(eng, [prompt(n)])
+        else:                          # exact-length, eager
+            eng.prefill_batch([prompt(n)])
+    for k in (1, 3):
+        eng.decode_fused(k)
+        assert all(_check_fused_replay(eng, k) for _ in range(3))
+    cc = eng.compile_counts()
+    assert cc["fused_decode"] == 2
+    assert cc["bucketed_prefill"] == (1 if bucketed else 0)
+    assert cc["reference_prefill"] == (0 if bucketed else 3)
+    assert len(eng.graphs._graphs) == cc["total"] - cc["reference_prefill"]
+
+
+def test_reference_decode_graph_matches_eager_calls(cuda):
+    """Reference mode: each replay of the (n_slots, 1) decode equals
+    ``decode_step`` and the argmax/gap reduction called eagerly on a clone
+    of the pool."""
+    eng = _graph_engine(cuda, "qwen2-0.5b")
+    rng = np.random.default_rng(1)
+    nxt = {}
+    for n in (7, 10, 13):
+        slot, tok, _ = eng.prefill_into_slot(
+            rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32))
+        nxt[slot] = tok
+    for i in range(4):
+        toks = np.zeros((eng.n_slots, 1), np.int32)
+        for s, t in nxt.items():
+            toks[s, 0] = t
+        logits, cache = TM.decode_step(eng.params, eng.cfg, toks,
+                                       _clone(eng.cache),
+                                       torch.from_numpy(eng.pos).to(cuda))
+        etok, egap = argmax_gap(logits)
+        replays = eng.graphs.replays
+        out = eng.decode(nxt)
+        assert eng.graphs.replays == replays + (1 if i else 0)
+        for s, (t, g) in out.items():
+            assert t == int(etok[s]) and g == float(egap[s])
+        assert _equal_trees(eng.cache, cache)
+        nxt = {s: t for s, (t, _) in out.items()}
+    assert eng.compile_counts() == {"reference_prefill": 3,
+                                    "reference_decode": 1,
+                                    "bucketed_prefill": 0,
+                                    "fused_decode": 0, "total": 4}
+
+
+def test_graph_replays_count_their_kernel_launches(cuda):
+    """A replay counts the launches its capture recorded: after N fused
+    single steps top2gap has launched N times and decode attention N times
+    per layer, the warm-up included, the capture not."""
+    eng = _graph_engine(cuda, "qwen2-0.5b")
+    eng.prefill_batch([np.arange(5, dtype=np.int32)])
+    before = {n: f.launches for n, f in (("top2gap", top2gap),
+                                         ("decode", decode_attention),
+                                         ("flash", flash_attention))}
+    for _ in range(6):
+        eng.decode_fused(1)
+    torch.cuda.synchronize()
+    assert eng.graphs.replays == 5
+    assert top2gap.launches - before["top2gap"] == 6
+    assert decode_attention.launches - before["decode"] == \
+        6 * eng.cfg.num_layers
+    assert flash_attention.launches == before["flash"]
+
+
+def test_inference_engine_graphs_match_eager_at_every_bucket(cuda):
+    """Each bucket's graph replay returns the scores a direct eager call of
+    ``apply_tiny`` gives on the same padded batch, bit for bit, on two
+    batches each: a full one and the smallest the engine pads to it."""
+    cfg = TY.TINY_FAMILY[1]
+    params = TY.init_tiny(cfg, 0, device=cuda)
+    eng = TE.InferenceEngine(cfg.name, lambda p, x: TY.apply_tiny(cfg, p, x),
+                             params, buckets=(1, 2, 4, 8, 16))
+    eng.warmup(32)
+    assert len(eng.graphs) == 5 and eng.graphs.replays == 0
+    rng = np.random.default_rng(2)
+    for lo, b in zip((0,) + eng.buckets, eng.buckets):
+        for n in (b, lo + 1):
+            tok = np.zeros((b, 32), np.int32)
+            tok[:n] = rng.integers(0, cfg.vocab, (n, 32))
+            with torch.no_grad():
+                want = TY.apply_tiny(cfg, params, torch.from_numpy(tok)
+                                     .to(cuda))[:n]
+            assert torch.equal(eng.infer(tok[:n]), want)
+    assert len(eng.graphs) == 5
+    assert eng.graphs.replays == 2 * len(eng.buckets)
+
+
+def test_inference_engine_serves_concurrent_threads_their_own_scores(cuda):
+    """Consumer threads call one engine at once (logical devices hosting
+    replicas of one model): 16 threads, more than the cores, each with its
+    own batch, under a shortened switch interval; every call returns its
+    own batch's scores."""
+    import sys
+    import threading
+    cfg = TY.TINY_FAMILY[1]
+    params = TY.init_tiny(cfg, 1, device=cuda)
+    eng = TE.InferenceEngine(cfg.name, lambda p, x: TY.apply_tiny(cfg, p, x),
+                             params, buckets=(8,))
+    eng.warmup(32)
+    rng = np.random.default_rng(3)
+    n_threads = 16
+    toks = [rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)
+            for _ in range(n_threads)]
+    want = [eng.infer(t) for t in toks]
+    assert not torch.equal(want[0], want[1])
+    bad = []
+
+    def work(i):
+        for _ in range(100):
+            if not torch.equal(eng.infer(toks[i]), want[i]):
+                bad.append(i)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad and len(eng.graphs) == 1
+    assert eng.graphs.replays == n_threads * 101
