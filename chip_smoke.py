@@ -122,6 +122,35 @@ launch counts include graph replays.
              and idle share) and a real run at the reference's default
              2000 qps (numbers only) follow, and ``serve_tiny_fidelity``
              puts real p95 beside the simulator's at both loads.
+10. serve_baselines — the paper's baselines (``serving/baselines.py``)
+             over the family and profiles of phase 9 (not trained
+             again). ``serve_baselines_grid``: the paper's Fig. 7 on the
+             simulator, the fewest logical devices (1-8, binary search)
+             with which CascadeServe's plan, DynBa's grid and MS+'s grid
+             serve a 4 s diurnal trace peaking at 8,000 qps at two
+             accuracy targets (the two best models' accuracy less 0.005)
+             times two p95 targets (0.5 and 2 ms), CascadeServe's saving
+             factor, and Cocktail+'s time-averaged active devices on 8.
+             Then DynBa (the most accurate model) and MS+ through
+             ``build_plan`` on the threaded ``CascadeServer`` with the
+             policy's selector, at 60 and 2,000 qps as in phase 9, each
+             beside the simulator's run of the same policy and trace, and
+             a ``serve_baselines`` line with CascadeServe's runs of phase
+             9. Checks: at 60 qps at least 95 % done, every request
+             served within its gear's cascade, top2gap launched once per
+             executed batch in every run, and Cocktail+'s ``build_plan``
+             refusing its ensemble gears.
+11. serve_tenants — the reference CLI's two-tenant example
+             (``interactive:latency:0.3:600:2,batch:latency:1.0:600:1``)
+             planned by ``plan_multi_tenant`` for the 2 logical devices,
+             both tenants' azure-like traces superposed and served by the
+             threaded ``MultiTenantServer`` over the card's
+             ``EngineBackend`` behind an ``AdmissionController`` (0.75
+             utilisation cap, as the CLI) with ``Telemetry`` on, beside
+             ``ServingSimulator.run_multi_tenant``. Checks: per tenant
+             offered = done + shed, cascade semantics, span conservation
+             (none open), ``dump_metrics``'s three files written, top2gap
+             launched once per executed batch.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -202,6 +231,14 @@ MIN_TOKENS, EARLY_MARGIN = 4, 0.5
 TINY_DEVICES, TINY_TRACE_S, TINY_QPS, TINY_SLO = 2, 8, 60.0, "latency:0.3"
 TINY_QPS_STRESS = 2000.0      # the reference's default --qps-max
 TINY_BATCH = 64               # top2gap row timed at the classifier shape
+# the paper's Fig. 7 cost grid on the DES over the card's tiny profiles:
+# a diurnal trace whose peak the flat sub-ms batch runtimes of one card
+# serve; the p95 targets make queueing, not throughput, the cost
+GRID_MAX_DEV, GRID_PEAK, GRID_TRACE_S, GRID_RANGES = 8, 8000.0, 4, 4
+GRID_P95 = (0.5e-3, 2e-3)     # seconds
+GRID_ACC_MARGIN = 0.005       # targets: the two best models' accuracy less
+# the reference CLI's own two-tenant example (repro/launch/serve.py)
+TENANTS = "interactive:latency:0.3:600:2,batch:latency:1.0:600:1"
 
 
 CARD = ""   # the nvidia-smi name and power limit, set by phase_device
@@ -1633,10 +1670,11 @@ def _cascade_violations(done, seen) -> list:
 
 
 def _real_run(S, plan, backend, trace, qps: float, phase: str,
-              profile: bool = False):
+              profile: bool = False, selector=None):
     """One threaded wall-clock run through ``serve.serve_real`` over a
-    recording backend; with ``profile``, under torch.profiler (device busy
-    and idle share). Launch counters are zeroed just before and read just
+    recording backend, under the plan's policy or a baseline's
+    ``selector``; with ``profile``, under torch.profiler (device busy and
+    idle share). Launch counters are zeroed just before and read just
     after. Returns (summary, completed requests, recording backend)."""
     from torch.profiler import ProfilerActivity
 
@@ -1651,7 +1689,8 @@ def _real_run(S, plan, backend, trace, qps: float, phase: str,
         K.reset_launch_counts()
         t0 = time.perf_counter()
         server, done, labels, offered = S.serve_real(plan, rec, trace,
-                                                     decision_trace=tr)
+                                                     decision_trace=tr,
+                                                     selector=selector)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = K.launch_counts()
@@ -1840,7 +1879,312 @@ def phase_serve_tiny(dev) -> dict:
           "device_idle_share_60qps": profiled.get("idle_share"),
           "graphs": graphs["graphs"],
           "capture_seconds": graphs["capture_seconds"]})
-    return real["launches"]
+    return real["launches"], {
+        "backend": backend, "profiles": profiles, "hw": hw,
+        "cascadeserve": {TINY_QPS: (real, des),
+                         TINY_QPS_STRESS: (real_hi, des_hi)}}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's baselines (Fig. 7 on the DES, real runs on the card)
+# ---------------------------------------------------------------------------
+
+def _min_devices(check) -> "int | None":
+    """The fewest devices in [1, GRID_MAX_DEV] that pass ``check``, by
+    binary search (monotone in devices), as ``benchmarks/bench_cost_grid
+    .py`` finds them."""
+    lo, hi, best = 1, GRID_MAX_DEV, None
+    while lo <= hi:
+        mid = (lo + hi) // 2
+        if check(mid):
+            best, hi = mid, mid - 1
+        else:
+            lo = mid + 1
+    return best
+
+
+def _cost_grid(profiles, mem_per_device: float) -> dict:
+    """The paper's Fig. 7 on the discrete-event simulator over the profiles
+    measured on the card: at each (accuracy, p95) target, the fewest
+    logical devices with which CascadeServe's plan, any point of DynBa's
+    grid and any point of MS+'s grid serve a diurnal trace with 98 % of
+    the arrivals done; CascadeServe's saving is the cheaper baseline's
+    count over its own. Each (system, grid point, devices, p95 target) run
+    is made once and read at both accuracy targets. Cocktail+ (ensembles,
+    simulator only) at the looser p95 on the most devices: its
+    time-averaged active devices."""
+    from repro_torch.core.gears import SLO
+    from repro_torch.core.plan_state import (HardwareSpec,
+                                             InfeasiblePlanError)
+    from repro_torch.core.planner import optimize_gear_plan
+    from repro_torch.core.simulator import ServingSimulator
+    from repro_torch.core.traces import diurnal_like_trace
+    from repro_torch.serving.baselines import (CocktailPlusPolicy,
+                                               DynBaPolicy, MSPlusPolicy)
+
+    t0 = time.perf_counter()
+    trace = diurnal_like_trace(seconds=GRID_TRACE_S, peak_qps=GRID_PEAK,
+                               seed=1)
+    accs = sorted(p.accuracy for p in profiles.values())
+    acc_targets = [accs[-2] - GRID_ACC_MARGIN, accs[-1] - GRID_ACC_MARGIN]
+    grids = {"cascadeserve": [None], "dynba": DynBaPolicy.grid(profiles),
+             "msplus": MSPlusPolicy.grid(profiles)}
+    runs = {}
+
+    def hw(n):
+        return HardwareSpec(num_devices=n, mem_per_device=mem_per_device)
+
+    def run(system, i, n, p95):
+        key = (system, i, n, p95)
+        if key not in runs:
+            slo = SLO(kind="latency", latency_p95=p95)
+            if system == "cascadeserve":
+                try:
+                    plan = optimize_gear_plan(
+                        profiles, hw(n), slo, qps_max=GRID_PEAK,
+                        n_ranges=GRID_RANGES).plan
+                except InfeasiblePlanError:
+                    runs[key] = None
+                else:
+                    runs[key] = ServingSimulator(
+                        profiles, plan.replicas, n).run_trace(plan, trace)
+            else:
+                gears, sel, reps, nd = grids[system][i].build(
+                    profiles, hw(n), slo, GRID_PEAK)
+                runs[key] = ServingSimulator(profiles, reps, nd).run_policy(
+                    gears, sel, trace)
+        return runs[key]
+
+    def meets(r, acc, p95):
+        return (r is not None and r.completed >= 0.98 * r.offered
+                and r.p95 <= p95 and r.accuracy >= acc)
+
+    cells = []
+    for acc in acc_targets:
+        for p95 in GRID_P95:
+            n = {s: _min_devices(lambda k, s=s, g=g: any(
+                meets(run(s, i, k, p95), acc, p95) for i in range(len(g))))
+                for s, g in grids.items()}
+            base = [n[s] for s in ("dynba", "msplus") if n[s]]
+            cells.append({"accuracy": acc, "p95_ms": p95 * 1e3,
+                          "devices": n,
+                          "saving": min(base) / n["cascadeserve"]
+                          if base and n["cascadeserve"] else None})
+    slo = SLO(kind="latency", latency_p95=GRID_P95[-1])
+    pol = CocktailPlusPolicy(forecast=trace)
+    gears, sel, reps, nd = pol.build(profiles, hw(GRID_MAX_DEV), slo,
+                                     GRID_PEAK)
+    r = ServingSimulator(profiles, reps, nd).run_policy(gears, sel, trace)
+    return {"phase": "serve_baselines_grid", "peak_qps": GRID_PEAK,
+            "trace_seconds": GRID_TRACE_S, "arrivals": r.offered,
+            "n_ranges": GRID_RANGES, "acc_targets": acc_targets,
+            "p95_targets_ms": [x * 1e3 for x in GRID_P95],
+            "model_accuracy": {m: p.accuracy for m, p in profiles.items()},
+            "cells": cells,
+            "cocktail_plus": {
+                "p95_target_ms": GRID_P95[-1] * 1e3,
+                "devices": GRID_MAX_DEV, "ensemble": list(
+                    gears[0].cascade.models),
+                "active_device_cost": CocktailPlusPolicy.active_device_cost(
+                    r, gears),
+                "done": r.completed, "offered": r.offered,
+                "p95_ms": r.p95 * 1e3, "accuracy": r.accuracy},
+            "des_runs": len(runs) + 1,
+            "seconds": time.perf_counter() - t0}
+
+
+def _baseline_real(S, name: str, policy, profiles, backend, hw,
+                   qps: float) -> dict:
+    """One baseline served on the card: ``build_plan`` gives the plan and
+    the policy's selector, the threaded ``CascadeServer`` serves an
+    azure-like trace with them (``serve.serve_real``), and the same
+    policy and trace run on the discrete-event simulator."""
+    from repro_torch.core.simulator import ServingSimulator
+    slo = S.parse_slo(TINY_SLO)
+    plan, selector = policy.build_plan(profiles, hw, slo, qps)
+    trace = S.make_trace("azure", TINY_TRACE_S, qps)
+    real, done, rec = _real_run(S, plan, backend, trace, qps,
+                                "serve_baselines_real", selector=selector)
+    gears, sel, reps, nd = policy.build(profiles, hw, slo, qps)
+    des = ServingSimulator(profiles, reps, nd).run_policy(gears, sel, trace)
+    real.update(policy=name, gears=[list(g.cascade.models) for g in gears],
+                cascade_violations=len(_cascade_violations(done, rec.seen)),
+                des_done=des.completed, des_offered=des.offered,
+                des_p95_ms=des.p95 * 1e3, des_accuracy=des.accuracy,
+                des_gear_switches=len(des.gear_switches))
+    emit(real)
+    return real
+
+
+def phase_serve_baselines(tiny: dict) -> dict:
+    """The paper's baselines on the card, over the tiny family trained and
+    profiled by ``serve_tiny``: the DES cost grid, then DynBa (the most
+    accurate model) and MS+ through ``build_plan`` on the threaded
+    ``CascadeServer`` at 60 and 2,000 qps beside CascadeServe's runs.
+    Returns the launch counts summed over the real runs."""
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.baselines import (CocktailPlusPolicy,
+                                               DynBaPolicy, MSPlusPolicy)
+    profiles, backend, hw = tiny["profiles"], tiny["backend"], tiny["hw"]
+    grid = _cost_grid(profiles, hw.mem_per_device)
+    emit(grid)
+    try:
+        CocktailPlusPolicy().build_plan(profiles, hw,
+                                        S.parse_slo(TINY_SLO), TINY_QPS)
+    except NotImplementedError:
+        pass
+    else:
+        check(False, "Cocktail+ build_plan refuses its ensemble gears")
+
+    best = max(profiles, key=lambda m: profiles[m].accuracy)
+    launches = {k: 0 for k in K.launch_counts()}
+    summary = {}
+    for qps in (TINY_QPS, TINY_QPS_STRESS):
+        real, des = tiny["cascadeserve"][qps]
+        row = {"cascadeserve": {
+            "done": real["done"], "offered": real["offered"],
+            "p50_ms": real.get("p50_ms"), "p95_ms": real.get("p95_ms"),
+            "accuracy": real.get("accuracy"),
+            "gear_switches": real["gear_switches"],
+            "top2gap_launches": real["launches"]["top2gap"],
+            "des_p95_ms": des["p95_ms"]}}
+        for name, pol in (("dynba", DynBaPolicy(best)),
+                          ("msplus", MSPlusPolicy())):
+            r = _baseline_real(S, name, pol, profiles, backend, hw, qps)
+            for k, v in r["launches"].items():
+                launches[k] += v
+            n_top2gap = r["launches"]["top2gap"]
+            check(n_top2gap == r["executed_batches"] == r["fires"] > 0,
+                  f"{name} at {qps} qps: top2gap launches {n_top2gap} == "
+                  f"executed batches {r['executed_batches']}")
+            check(r["cascade_violations"] == 0,
+                  f"{name} at {qps} qps: every request served within its "
+                  f"gear's cascade")
+            if qps == TINY_QPS:
+                check(r["done"] >= 0.95 * r["offered"],
+                      f"{name}: at least 95 % done at {qps} qps "
+                      f"({r['done']}/{r['offered']})")
+            row[name] = {k: r.get(k) for k in (
+                "done", "offered", "p50_ms", "p95_ms", "accuracy",
+                "gear_switches", "des_p95_ms", "des_accuracy")}
+            row[name]["top2gap_launches"] = n_top2gap
+        summary[str(qps)] = row
+    emit({"phase": "serve_baselines", "by_qps": summary,
+          "cost_grid": [{"accuracy": c["accuracy"], "p95_ms": c["p95_ms"],
+                         **c["devices"], "saving": c["saving"]}
+                        for c in grid["cells"]],
+          "cocktail_active_device_cost":
+              grid["cocktail_plus"]["active_device_cost"]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: two tenants on one shared fleet (MultiTenantServer)
+# ---------------------------------------------------------------------------
+
+def phase_serve_tenants(tiny: dict) -> dict:
+    """The reference CLI's two-tenant example planned jointly with
+    ``plan_multi_tenant`` over the card's tiny-family profiles, then both
+    tenants' superposed azure-like traces served by the threaded
+    ``MultiTenantServer`` over the card's ``EngineBackend``, behind an
+    ``AdmissionController`` and with ``Telemetry`` on; the same plan and
+    traces on ``ServingSimulator.run_multi_tenant``. Returns the launch
+    counts of the served run."""
+    import tempfile
+
+    from repro_torch.core.admission import (AdmissionConfig,
+                                            AdmissionController)
+    from repro_torch.core.simulator import ServingSimulator
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.core.tenancy import plan_multi_tenant
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.runtime import MultiTenantServer, Request
+    from repro_torch.serving.tinymodels import synthetic_classification_data
+
+    profiles, backend, hw = tiny["profiles"], tiny["backend"], tiny["hw"]
+    specs = S.parse_tenants(TENANTS)
+    report = plan_multi_tenant(profiles, hw, specs)
+    mt = report.plan
+    traces = {s.name: S.make_trace("azure", TINY_TRACE_S, s.qps_max)
+              for s in specs}
+    counts = {n: int(traces[n].sum()) + 8 for n in mt.names}
+    toks, labels, _ = synthetic_classification_data(sum(counts.values()),
+                                                    seed=7)
+    reqs, base = {}, 0
+    for n in mt.names:             # request ids unique across tenants
+        reqs[n] = [Request(rid=base + k, tokens=toks[base + k], tenant=n)
+                   for k in range(counts[n])]
+        base += counts[n]
+
+    telem = Telemetry()
+    rec = _Recording(backend)
+    server = MultiTenantServer(
+        mt, backend=rec, telemetry=telem,
+        admission=AdmissionController(
+            mt, AdmissionConfig(utilization_cap=0.75),
+            registry=telem.registry))
+    S.prepare_engines(backend)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run_trace(reqs, traces)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+
+    sim = ServingSimulator(profiles, mt.replicas, hw.num_devices)
+    des = sim.run_multi_tenant(mt, traces, admission=AdmissionController(
+        mt, AdmissionConfig(utilization_cap=0.75)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tenants.jsonl")
+        S.dump_metrics(telem, path)
+        files = {suffix: os.path.getsize(path + suffix)
+                 for suffix in ("", ".prom", ".attr.json")}
+    cons = telem.conservation()
+    tenants = {}
+    for n in mt.names:
+        lat = np.array([r.latency for r in done[n]])
+        d = des[n]
+        tenants[n] = {
+            "offered": server.offered_counts[n], "done": len(done[n]),
+            "shed": server.shed_counts[n],
+            "p50_ms": float(np.quantile(lat, .5) * 1e3) if len(lat)
+            else None,
+            "p95_ms": float(np.quantile(lat, .95) * 1e3) if len(lat)
+            else None,
+            "accuracy": float(np.mean([r.pred == labels[r.rid]
+                                       for r in done[n]]))
+            if done[n] else None,
+            "gear_switches": len(server.gear_switches[n]),
+            "cascade_violations": len(_cascade_violations(done[n],
+                                                          rec.seen)),
+            "top_gear": list(mt.plans[n].gears[-1].cascade.models),
+            "des_done": d.result.completed, "des_offered": d.offered,
+            "des_shed": d.shed, "des_p95_ms": d.p95 * 1e3,
+            "des_accuracy": d.accuracy,
+            "des_gear_switches": len(d.result.gear_switches)}
+    emit({"phase": "serve_tenants", "tenants_spec": TENANTS,
+          "devices": hw.num_devices, "trace_seconds": TINY_TRACE_S,
+          "plan_seconds": report.wall_seconds, "wall_s": wall,
+          "executed_batches": rec.batches,
+          "queued_at_end": sum(len(q) for q in server.queues),
+          "launches": launches, "conservation": cons,
+          "metrics_files_bytes": files, "tenants": tenants})
+    for n, r in tenants.items():
+        check(r["offered"] == r["done"] + r["shed"],
+              f"{n}: offered {r['offered']} == done {r['done']} + shed "
+              f"{r['shed']}")
+        check(r["cascade_violations"] == 0,
+              f"{n}: every request served within its gear's cascade")
+    check(cons["open"] == 0 and cons["opened"] == cons["completed"]
+          + cons["shed"] + cons["revoked"],
+          f"telemetry conservation holds ({cons})")
+    check(all(v > 0 for v in files.values()),
+          f"dump_metrics wrote its three files ({files})")
+    check(launches["top2gap"] == rec.batches > 0,
+          f"top2gap launches {launches['top2gap']} == executed batches "
+          f"{rec.batches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1863,7 +2207,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cost_model({s["trace"]["arch"]: s["trace"]
                       for s in summaries.values()}, summaries["serve_qwen3"])
-    paths["serve_tiny"] = phase_serve_tiny(dev)
+    paths["serve_tiny"], tiny = phase_serve_tiny(dev)
+    paths["serve_baselines"] = phase_serve_baselines(tiny)
+    paths["serve_tenants"] = phase_serve_tenants(tiny)
     sources = {
         "top2gap": ("src/repro_torch/kernels/csrc/top2gap.cu",
                     "src/repro/kernels/top2gap.py:79"),

@@ -1,16 +1,16 @@
-"""Port of ``repro/serving/runtime.py:1-602``.
+"""Port of ``repro/serving/runtime.py``.
 
-``Request``, ``_ReplicaQueue`` and ``CascadeServer`` (``run_trace`` on the
-wall clock with threads, ``run_virtual`` in virtual time) are copied line
-for line: the runtime owns only threads, queues and the clock, every
-decision goes through the shared ``SchedulerCore`` copy, and execution
-through an ``ExecutionBackend`` — by default the port's ``EngineBackend``,
-whose engines run on the card. Every logical device of the plan gets its
-own consumer thread; on one card they all launch on the same device and
+``Request``, ``_ReplicaQueue``, ``_TenantReplicaQueue``, ``CascadeServer``
+and ``MultiTenantServer`` (each with ``run_trace`` on the wall clock with
+threads and ``run_virtual`` in virtual time) are copied line for line: the
+runtime owns only threads, queues and the clock, every decision goes
+through the shared ``SchedulerCore`` copy, and execution through an
+``ExecutionBackend`` — by default the port's ``EngineBackend``, whose
+engines run on the card. Every logical device of the plan gets its own
+consumer thread; on one card they all launch on the same device and
 stream, so their batches run one after another there, where the
-discrete-event simulator models independent devices. ``MultiTenantServer``
-is not ported yet (it waits for ``core/tenancy.py`` and
-``core/admission.py``).
+discrete-event simulator models independent devices. The tenants of a
+``MultiTenantServer`` share those devices the same way.
 
 The reference module's description follows.
 
@@ -107,6 +107,29 @@ class _ReplicaQueue:
     def head_time(self) -> Optional[float]:
         with self.lock:
             return self.q[0][1] if self.q else None
+
+
+class _TenantReplicaQueue(_ReplicaQueue):
+    """Replica queue with per-tenant occupancy counts, maintained under the
+    same lock as the queue itself (the effective batch trigger of a shared
+    queue is the min over the tenants actually waiting in it)."""
+
+    def __init__(self, n_tenants: int):
+        super().__init__()
+        self.counts = [0] * n_tenants
+
+    def push_tenant(self, req: Request, t: float, ti: int):
+        with self.lock:
+            self.q.append((req, t))
+            self.counts[ti] += 1
+
+    def pop_batch_tenant(self, max_n: int, tidx_of) -> List:
+        with self.lock:
+            n = min(len(self.q), max_n)
+            batch = [self.q.popleft() for _ in range(n)]
+            for req, _ in batch:
+                self.counts[tidx_of[req.tenant]] -= 1
+            return batch
 
 
 class CascadeServer:
@@ -588,3 +611,384 @@ class CascadeServer:
                     on_device_event(t_evt, *payload)
 
         return list(self.completed)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant frontend (core/tenancy.py)
+# ---------------------------------------------------------------------------
+
+class MultiTenantServer:
+    """Several tenants' gear ladders served over ONE shared fleet.
+
+    The tenant extension of ``CascadeServer``: per-tenant
+    ``SchedulerCore``s (own selector, own decision trace, own drift
+    monitor) with KEYED per-tenant route-RNG streams, shared tenant-tagged
+    replica queues (one fired batch may mix tenants — execution is
+    per-model, continuation is per-sample under the admitting gear), the
+    ``AdmissionController`` hooks (downgrade / weighted-fair / shed) on
+    the submit path, and per-tenant ``PlanLifecycle``s so a drifted
+    tenant's ladder hot-swaps without touching anyone else's.
+
+    Threaded mode serves wall-clock traffic; ``run_virtual`` drives the
+    identical decision path deterministically and is decision-trace
+    comparable to ``ServingSimulator.run_multi_tenant``
+    (tests/test_tenancy.py).
+    """
+
+    def __init__(self, mt_plan, engines: Optional[Dict[str,
+                                                       InferenceEngine]]
+                 = None, estimator="top2_gap", alpha: float = 8.0,
+                 measure_interval: float = 0.1, max_wait: float = 0.05,
+                 max_batch: int = 128, seed: int = 0, admission=None,
+                 lifecycles: Optional[Dict] = None,
+                 decision_traces: Optional[Dict[str, DecisionTrace]] = None,
+                 fleet_trace: Optional[DecisionTrace] = None,
+                 backend: Optional[ExecutionBackend] = None,
+                 route_pools: Optional[Dict[str, RoutePool]] = None,
+                 telemetry=None):
+        self.mt_plan = mt_plan
+        self.names: List[str] = list(mt_plan.names)
+        self._tidx = {n: i for i, n in enumerate(self.names)}
+        self.replicas = mt_plan.replicas
+        self.backend = backend if backend is not None \
+            else EngineBackend(engines or {}, estimator=estimator)
+        self.cfg = SchedulerConfig(
+            max_wait=max_wait, measure_interval=measure_interval,
+            alpha=alpha, max_batch=max_batch, seed=seed)
+        self.admission = admission
+        self.fleet_trace = fleet_trace
+        # pure observer: span ids are (tenant, rid) pairs — per-tenant
+        # request ids may collide across tenants
+        self.telemetry = telemetry
+        self._traw = telemetry.raw.append if telemetry is not None else None
+        # per-tenant: (plan, cur gear, epoch) swapped atomically, core,
+        # keyed route pool, lifecycle
+        self._active: List[Tuple] = []
+        self.cores: List[SchedulerCore] = []
+        self.pools: List[RoutePool] = []
+        self.lifecycles: List = []
+        for n in self.names:
+            plan = mt_plan.plans[n]
+            self._active.append((plan, 0, 0))
+            tr = decision_traces.get(n) if decision_traces else None
+            core = SchedulerCore(
+                self.replicas, self.cfg,
+                selector=with_hysteresis(plan_target(plan), alpha),
+                trace=tr)
+            lc = lifecycles.get(n) if lifecycles else None
+            if lc is not None:
+                lc.attach(core)
+            self.cores.append(core)
+            self.pools.append(
+                route_pools.get(n) if route_pools and n in route_pools
+                else RoutePool(seed, key=n))
+            self.lifecycles.append(lc)
+        self.queues: List[_TenantReplicaQueue] = [
+            _TenantReplicaQueue(len(self.names)) for _ in self.replicas]
+        self._arr_counts = [0] * len(self.names)
+        self._count_lock = threading.Lock()
+        self._stop = threading.Event()
+        self.completed: Dict[str, List[Request]] = {n: [] for n in
+                                                    self.names}
+        self.shed_counts: Dict[str, int] = {n: 0 for n in self.names}
+        self.offered_counts: Dict[str, int] = {n: 0 for n in self.names}
+        self._done_lock = threading.Lock()
+        self.gear_switches: Dict[str, List] = {n: [] for n in self.names}
+        self.plan_swaps: Dict[str, List] = {n: [] for n in self.names}
+        self._threads: List[threading.Thread] = []
+
+    # --------------------------------------------------- decision steps
+    def submit(self, req: Request, now: Optional[float] = None) -> int:
+        """One arrival of ``req.tenant``: measured-QPS count, admission
+        verdict (shed = return -1, no fleet state touched), then route to
+        a replica queue of the tenant's current gear. Mirrors the
+        simulator's arrival branch decision for decision."""
+        ti = self._tidx[req.tenant]
+        t = time.monotonic() if now is None else now
+        req.t_arrive = t
+        with self._count_lock:
+            self._arr_counts[ti] += 1
+            self.offered_counts[req.tenant] += 1
+        if self.admission is not None and \
+                not self.admission.admit(req.tenant):
+            with self._done_lock:
+                self.shed_counts[req.tenant] += 1
+            if self._traw is not None:
+                # a shed request still opens (and immediately closes) a
+                # span — conservation counts it on the offered side
+                self._traw(("admit", t, (req.tenant, req.rid),
+                            self._active[ti][1], self._active[ti][2],
+                            req.tenant))
+                self._traw(("close", t, (req.tenant, req.rid), "shed"))
+            return -1
+        plan, cur, epoch = self._active[ti]
+        req.gear_idx = cur
+        gear = plan.gears[cur]
+        req.gear = gear
+        req.plan_epoch = epoch
+        req.stage = 0
+        if self._traw is not None:
+            self._traw(("admit", t, (req.tenant, req.rid), cur, epoch,
+                        req.tenant))
+        ridx = self.cores[ti].route(gear.cascade.models[0], gear,
+                                    self.pools[ti].next())
+        self.queues[ridx].push_tenant(req, t, ti)
+        return ridx
+
+    def _gear_step(self, now: float, measured: Dict[str, float]) -> None:
+        """One producer tick for every tenant, in tenant order — the same
+        sequence the simulator's measurement branch runs: lifecycle step
+        (+ atomic per-tenant swap), admission tick, then gear selection
+        (admission's downgrade overrides the selector while engaged)."""
+        for ti, n in enumerate(self.names):
+            plan, cur, epoch = self._active[ti]
+            lc = self.lifecycles[ti]
+            if lc is not None:
+                swap = lc.step(now, measured[n], cur)
+                if swap is not None:
+                    self._active[ti] = (swap.plan, swap.new_gear,
+                                        swap.epoch)
+                    if swap.selector is not None:
+                        self.cores[ti].selector = swap.selector
+                    self.plan_swaps[n].append((now, swap.epoch,
+                                               swap.reason))
+                    if swap.new_gear != cur:
+                        self.gear_switches[n].append((now, swap.new_gear))
+        if self.admission is not None:
+            self.admission.on_tick(
+                now, measured,
+                {n: self._active[ti][1]
+                 for ti, n in enumerate(self.names)})
+        for ti, n in enumerate(self.names):
+            plan, cur, epoch = self._active[ti]
+            d = self.admission.decision(n) \
+                if self.admission is not None else None
+            if d is not None and d.force_cheapest:
+                tgt = min(self.admission.cheapest[n], len(plan.gears) - 1)
+                if tgt != cur:
+                    self.gear_switches[n].append((now, tgt))
+                    if self.cores[ti].trace is not None:
+                        self.cores[ti].trace.gear_switches.append(
+                            (cur, tgt))
+                    self._active[ti] = (plan, tgt, epoch)
+                continue
+            m0 = plan.gears[cur].cascade.models[0]
+            q0 = 0
+            for ridx in self.cores[ti].reps_of.get(m0, []):
+                q0 += self.queues[ridx].counts[ti]
+            new = self.cores[ti].select_gear(now, measured[n], cur, q0,
+                                             len(plan.gears))
+            if new != cur:
+                self.gear_switches[n].append((now, new))
+                self._active[ti] = (plan, new, epoch)
+
+    def _poll_replica(self, ridx: int, now: float) -> Optional[List]:
+        q = self.queues[ridx]
+        qlen = len(q)
+        if not qlen:
+            return None
+        model = self.replicas[ridx].model
+        from repro_torch.core.tenancy import effective_trigger
+        trig = effective_trigger(
+            model, q.counts,
+            [self._active[ti][0].gears[self._active[ti][1]]
+             for ti in range(len(self.names))])
+        head = q.head_time()
+        head_wait = head_of_line_wait(now, head, self.cfg.max_wait) \
+            if head is not None else 0.0
+        if not self.cores[0].fire_at(qlen, head_wait, trig):
+            return None
+        batch = q.pop_batch_tenant(self.cores[0].batch_size(qlen),
+                                   self._tidx)
+        if not batch:
+            return None
+        if self.fleet_trace is not None:
+            self.fleet_trace.record_fire(ridx, [r.rid for r, _ in batch])
+        if self._traw is not None:
+            self._traw(("fire", now, ridx,
+                        tuple((r.tenant, r.rid) for r, _ in batch)))
+        return batch
+
+    def _run_batch(self, model: str, batch: List,
+                   now: Optional[float] = None,
+                   on_enqueue: Optional[Callable[[int, float], None]]
+                   = None) -> None:
+        reqs = [r for r, _ in batch]
+        ex = self.backend.execute(model, [r.rid for r in reqs],
+                                  tokens=[r.tokens for r in reqs])
+        certs, preds = ex.certs, ex.preds
+        t = time.monotonic() if now is None else now
+        for i, req in enumerate(reqs):
+            ti = self._tidx[req.tenant]
+            gear = req.gear
+            hop = self.cores[ti].next_hop(req.stage, float(certs[i]), gear)
+            if isinstance(hop, CascadeHop):
+                if self._traw is not None:
+                    self._traw(("escalate", t, (req.tenant, req.rid),
+                                req.stage))
+                req.stage = hop.next_stage
+                ridx = self.cores[ti].route(hop.next_model, gear,
+                                            self.pools[ti].next())
+                self.queues[ridx].push_tenant(req, t, ti)
+                if on_enqueue is not None:
+                    on_enqueue(ridx, t)
+            else:
+                req.t_done = t
+                req.pred = int(preds[i]) if preds is not None else -1
+                req.cert = float(certs[i])
+                req.resolver = hop.stage
+                if self._traw is not None:
+                    self._traw(("close", t, (req.tenant, req.rid),
+                                "completed"))
+                with self._done_lock:
+                    self.completed[req.tenant].append(req)
+
+    # -------------------------------------------------- threaded drivers
+    def _producer_loop(self):
+        while not self._stop.is_set():
+            time.sleep(self.cfg.measure_interval)
+            with self._count_lock:
+                measured = {n: self._arr_counts[ti] /
+                            self.cfg.measure_interval
+                            for ti, n in enumerate(self.names)}
+                self._arr_counts = [0] * len(self.names)
+            self._gear_step(time.monotonic(), measured)
+
+    def _consumer_loop(self, device: int):
+        my_reps = self.cores[0].reps_on_dev.get(device, [])
+        while not self._stop.is_set():
+            ran = False
+            now = time.monotonic()
+            for ridx in my_reps:
+                batch = self._poll_replica(ridx, now)
+                if batch:
+                    self._run_batch(self.replicas[ridx].model, batch)
+                    ran = True
+            if not ran:
+                time.sleep(0.0005)
+
+    def start(self) -> None:
+        for lc in self.lifecycles:
+            if lc is not None and lc.replanner is not None:
+                lc.replanner.threaded = True
+        self._stop.clear()
+        self._threads = [threading.Thread(target=self._producer_loop,
+                                          daemon=True)]
+        for d in range(self.mt_plan.num_devices):
+            self._threads.append(threading.Thread(
+                target=self._consumer_loop, args=(d,), daemon=True))
+        for t in self._threads:
+            t.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2.0)
+
+    def run_trace(self, requests: Dict[str, Sequence[Request]],
+                  traces: Dict[str, np.ndarray], drain: float = 2.0
+                  ) -> Dict[str, List[Request]]:
+        """Wall-clock open-loop replay of superposed tenant traces."""
+        from repro_torch.core.tenancy import merge_tenant_arrivals
+        times, tidx, lidx = merge_tenant_arrivals(traces, self.names)
+        self.start()
+        t0 = time.monotonic()
+        for k in range(len(times)):
+            delay = t0 + times[k] - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            req = requests[self.names[int(tidx[k])]][int(lidx[k])]
+            req.tenant = self.names[int(tidx[k])]
+            self.submit(req)
+        time.sleep(drain)
+        self.stop()
+        return {n: list(v) for n, v in self.completed.items()}
+
+    # ------------------------------------------------- virtual-time driver
+    def run_virtual(self, requests: Dict[str, Sequence[Request]],
+                    traces: Dict[str, np.ndarray],
+                    batch_runtime: Optional[Callable[[str, int], float]]
+                    = None, drain: float = 2.0
+                    ) -> Dict[str, List[Request]]:
+        """Deterministic virtual-time replay, decision-comparable to
+        ``ServingSimulator.run_multi_tenant`` (same event ordering as the
+        single-tenant ``run_virtual``)."""
+        from repro_torch.core.tenancy import merge_tenant_arrivals
+        if batch_runtime is None:
+            batch_runtime = self.backend.batch_runtime
+        times, tidx, lidx = merge_tenant_arrivals(traces, self.names)
+        n_arr = len(times)
+        times_l = times.tolist()
+        horizon = float(max((len(traces.get(n, ())) for n in self.names),
+                            default=0)) + drain
+        replicas = self.replicas
+        reps_on_dev = self.cores[0].reps_on_dev
+        max_wait = self.cfg.max_wait
+        dev_idle = [True] * self.mt_plan.num_devices
+
+        heap: List[Tuple[float, int, str, tuple]] = []
+        seq = 0
+
+        def push_event(t, kind, payload):
+            nonlocal seq
+            heapq.heappush(heap, (t, seq, kind, payload))
+            seq += 1
+
+        def try_fire(ridx: int, t: float):
+            dev = replicas[ridx].device
+            if not dev_idle[dev]:
+                return
+            batch = self._poll_replica(ridx, t)
+            if not batch:
+                return
+            rt = batch_runtime(replicas[ridx].model, len(batch))
+            dev_idle[dev] = False
+            push_event(t + rt, "complete", (ridx, batch))
+
+        def on_enqueue(ridx: int, t: float):
+            try_fire(ridx, t)
+            if len(self.queues[ridx]):
+                push_event(t + max_wait, "timeout", (ridx,))
+
+        meas_end = self.cfg.measure_interval
+        arr_ptr = 0
+        inf = float("inf")
+        while True:
+            t_arr = times_l[arr_ptr] if arr_ptr < n_arr else inf
+            t_evt = heap[0][0] if heap else inf
+            t = min(t_arr, t_evt, meas_end)
+            if t > horizon or t == inf:
+                break
+            if t == meas_end and t < min(t_arr, t_evt):
+                with self._count_lock:
+                    measured = {n: self._arr_counts[ti] /
+                                self.cfg.measure_interval
+                                for ti, n in enumerate(self.names)}
+                    self._arr_counts = [0] * len(self.names)
+                self._gear_step(t, measured)
+                meas_end += self.cfg.measure_interval
+                continue
+            if t_arr <= t_evt:
+                n = self.names[int(tidx[arr_ptr])]
+                req = requests[n][int(lidx[arr_ptr])]
+                req.tenant = n
+                ridx = self.submit(req, now=t_arr)
+                arr_ptr += 1
+                if ridx >= 0:
+                    on_enqueue(ridx, t_arr)
+            else:
+                _, _, kind, payload = heapq.heappop(heap)
+                if kind == "complete":
+                    ridx, batch = payload
+                    dev = replicas[ridx].device
+                    self._run_batch(replicas[ridx].model, batch, now=t_evt,
+                                    on_enqueue=on_enqueue)
+                    dev_idle[dev] = True
+                    for rj in reps_on_dev.get(dev, []):
+                        try_fire(rj, t_evt)
+                        if not dev_idle[dev]:
+                            break
+                else:  # timeout
+                    try_fire(payload[0], t_evt)
+
+        return {n: list(v) for n, v in self.completed.items()}

@@ -357,8 +357,13 @@ def test_serve_cli_workload_qwen_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [["--real"],
-                                   ["--tenants", "a:latency:0.3:600"],
-                                   ["--metrics-out", "m.jsonl"]])
-def test_serve_cli_workload_qwen_refuses(extra):
-    with pytest.raises((NotImplementedError, SystemExit)):
+                                   ["--real", "--tenants",
+                                    "a:latency:0.3:600"],
+                                   ["--real", "--metrics-out", "m.jsonl"]])
+def test_serve_cli_workload_qwen_refuses(extra, capsys):
+    """The qwen workload has no real engines: ``--real`` is refused,
+    whatever else is asked (``--tenants`` and ``--metrics-out`` alone are
+    served, ``tests/test_torch_tenancy.py``)."""
+    with pytest.raises(SystemExit):
         TS.main(["--workload", "qwen", "--device", "cpu"] + extra)
+    assert "--real serves the tiny workload only" in capsys.readouterr().err

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, nothing of the JAX package, and no silent
 move to the CPU.
 
-* In a fresh interpreter, importing every ``repro_torch`` module and
+* In a fresh interpreter, importing every ``repro_torch`` module (the
+  baselines, admission, scenarios and fleet modules among them) and
   ``chip_smoke`` leaves neither ``jax`` (nor ``jaxlib``) nor any ``repro``
   module in ``sys.modules``.
 * The entry points default to ``device="cuda"``: without a CUDA device they
@@ -32,18 +33,28 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+# the numpy layers copied last must be among the modules imported above
+for n in NEW_MODULES:
+    if n not in names:
+        bad.append('missing:' + n)
 print(len(names), ' '.join(bad))
 """
+# the serving layer's numpy copies: baselines, admission, scenarios and the
+# elastic fleet
+NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
+               "repro_torch.serving.baselines", "repro_torch.distributed",
+               "repro_torch.distributed.fault_tolerance")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"), ROOT])
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    probe = f"NEW_MODULES = {NEW_MODULES!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, *bad = out.stdout.split()
-    assert int(n_modules) >= 58
+    assert int(n_modules) >= 63
     assert bad == []
 
 
@@ -97,3 +108,19 @@ def test_chip_smoke_refuses_without_cuda():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("extra", [
+    ["--tenants", "a:latency:0.3:600", "--workload", "qwen"],
+    ["--metrics-out", "m.jsonl", "--workload", "qwen"],
+    ["--tenants", "a:latency:0.3:600", "--stress-replay"]])
+def test_serve_modes_raise_without_cuda(monkeypatch, tmp_path, extra):
+    """The multi-tenant and metrics modes of the serve CLI default to the
+    card like every other mode, even where no model runs (the cost-model
+    workload): without one they raise before any work."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--artifact", str(tmp_path / "none.npz")] + extra)
+    assert not (tmp_path / "m.jsonl").exists()

@@ -52,7 +52,9 @@ VERBATIM = ["core/profiles.py", "core/lp.py", "core/cascade.py",
             "core/submodules/hardware_mapping.py",
             "core/submodules/batching.py", "core/telemetry.py",
             "core/adaption.py", "core/tenancy.py",
-            "profiling/cost_model.py"]
+            "profiling/cost_model.py", "core/admission.py",
+            "core/scenarios.py", "serving/baselines.py",
+            "distributed/fault_tolerance.py"]
 # verbatim definitions inside modules that are otherwise ported
 VERBATIM_DEFS = {
     "core/execution.py": ["resolve_estimator", "BatchExecution",
@@ -61,7 +63,9 @@ VERBATIM_DEFS = {
                           "profile_backend"],
     "core/certainty.py": ["StreamingCertainty", "threshold_grid",
                           "coverage_accuracy_curve"],
-    "serving/runtime.py": ["Request", "_ReplicaQueue", "CascadeServer"],
+    "serving/runtime.py": ["Request", "_ReplicaQueue", "CascadeServer",
+                           "_TenantReplicaQueue", "MultiTenantServer"],
+    "launch/serve.py": ["dump_metrics", "parse_slo", "parse_tenants"],
     "serving/tinymodels.py": ["TinyClassifierConfig", "TINY_FAMILY",
                               "synthetic_classification_data",
                               "_FAMILY_STEPS", "_FAMILY_LR"],

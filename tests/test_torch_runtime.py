@@ -13,8 +13,8 @@
   briefly by the port, in a process of its own).
 * ``repro_torch.launch.serve`` with ``--device cpu``: ``main`` on the
   simulator path, and the command line on the threaded ``--real`` path and
-  ``--stress-replay``, at small size; the options that wait for later
-  modules are refused.
+  ``--stress-replay``, at small size; the modes the reference's CLI lacks
+  are refused.
 """
 import json
 import os
@@ -270,9 +270,13 @@ def test_serve_main_threaded_paths(artifact, mode):
         assert "REPLAY stress (wall clock):" in out
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--tenants", "a:latency:0.3:600"], "item 3"),
-    (["--metrics-out", "m.jsonl"], "item 2")])
-def test_serve_main_refuses_what_is_not_ported(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("extra,why", [
+    (["--real", "--tenants", "a:latency:0.3:600"], "not with --real"),
+    (["--workload", "qwen", "--real"], "tiny workload only")])
+def test_serve_main_refuses_what_is_not_ported(extra, why, capsys):
+    """What the reference's CLI has no mode for is refused before any
+    work: multi-tenant serving on real engines, and real engines for the
+    cost-model workload."""
+    with pytest.raises(SystemExit):
         S.main(["--device", "cpu"] + extra)
+    assert why in capsys.readouterr().err
