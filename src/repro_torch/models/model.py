@@ -1,6 +1,6 @@
-"""Model assembly for attention and SSM (Mamba-1) decoders (port of
-``repro/models/model.py:52-142``, ``:174-193``, ``:312-330``,
-``:365-547``, ``:554-585``).
+"""Model assembly for attention, SSM (Mamba-1), mixture-of-experts and
+hybrid decoders (port of ``repro/models/model.py:52-142``, ``:149-265``,
+``:312-330``, ``:365-547``, ``:554-585``).
 
 The parameter dict keeps the JAX pytree's layout: ``blocks`` is a list with
 one entry per block-pattern position, every leaf stacked over repetitions
@@ -22,8 +22,11 @@ Entry points:
   widen_ssm_cache    — the SSM conv state's one-time widening
   init_cache         — zero cache
 
-Dense attention and SSM mixers are ported: MoE, encoder-decoder and
-modality-frontend configs raise ``NotImplementedError``.
+Attention and SSM mixers with dense or MoE FFNs are ported, and so every
+decoder-only config (the hybrid interleaves both mixers); encoder-decoder
+and modality-frontend configs raise ``NotImplementedError``. ``forward``
+returns the MoE layers' summed load-balance loss; prefill and decode
+discard it, as the reference does, and do not compute it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core import certainty as cert_lib
 from repro_torch.kernels.top2gap import argmax_gap
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (Params, apply_ffn, apply_norm,
                                        embed_tokens, lm_logits)
 
@@ -94,10 +98,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend.kind != "none" and cfg.frontend.frontend_dim:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   f"yet ported")
-    for spec in block_pattern(cfg):
-        if spec.ffn == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE FFNs are not yet "
-                                      f"ported")
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +109,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> Params:
     """Random params with the JAX init's shapes, dtypes and scale (normal
     * 0.02 weights, zero biases, unit norm scales in float32; the SSM's
-    ``dt_proj_b``, ``A_log`` and ``D`` in float32), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. A rep-stacked
-    weight is drawn one repetition at a time, so the float32 draw never
-    holds more than one layer's weight."""
+    ``dt_proj_b``, ``A_log`` and ``D`` in float32; the MoE router in
+    float32), drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``. A rep-stacked weight is drawn one repetition at a time,
+    and a rep-stacked expert weight one expert of one repetition at a
+    time, so the float32 draw never holds more than one layer's (or one
+    expert's) matrix."""
     dev = resolve_device(device)
     _check_ported(cfg)
     gen = torch.Generator(device=dev)
@@ -120,9 +122,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     reps = num_reps(cfg)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def normal(*shape):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        for part in (out if len(shape) == 3 else (out,)):
+    def normal(*shape, dt=dtype):
+        out = torch.empty(shape, dtype=dt, device=dev)
+        # one draw per matrix: (reps, ...) and (reps, E, ...) stacks split
+        for part in (out.flatten(0, len(shape) - 3) if len(shape) >= 3
+                     else (out,)):
             part.copy_(torch.randn(part.shape, generator=gen, device=dev,
                                    dtype=torch.float32).mul_(0.02))
         return out
@@ -164,11 +168,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 a["q_norm_scale"] = torch.ones(reps, hd, device=dev)
                 a["k_norm_scale"] = torch.ones(reps, hd, device=dev)
             blk["attn"] = a
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             blk["norm2"] = norm(reps)
+        if spec.ffn == "dense":
             blk["ffn"] = {"w_gate": normal(reps, d, cfg.d_ff),
                           "w_up": normal(reps, d, cfg.d_ff),
                           "w_down": normal(reps, cfg.d_ff, d)}
+        elif spec.ffn == "moe":
+            blk["moe"] = moe_lib.make_moe_params(
+                cfg, lambda shape, dt=dtype: normal(reps, *shape, dt=dt))
         blocks.append(blk)
     return {"embed": embed, "blocks": blocks, "final_norm": norm()}
 
@@ -198,9 +206,13 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
                  x: torch.Tensor, positions: torch.Tensor, mode: str,
                  cache: Optional[Dict[str, torch.Tensor]],
                  cache_index, cache_len: int
-                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
+                            Optional[torch.Tensor]]:
+    """Returns (x, new cache or None, the MoE aux loss or None); the aux
+    loss is computed in ``"full"`` mode only, where ``forward`` returns
+    it."""
     h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
-    new_cache = None
+    new_cache, aux = None, None
     if spec.mixer == "ssm":
         if mode == "full":
             mix = ssm.mamba_forward(p["mamba"], cfg, h)
@@ -217,40 +229,52 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
         mix, new_cache = attn.decode_attention(p["attn"], cfg, h, cache,
                                                cache_index)
     x = x + mix
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         h2 = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
-        x = x + apply_ffn(p["ffn"], h2, cfg.activation)
-    return x, new_cache
+        if spec.ffn == "dense":
+            out = apply_ffn(p["ffn"], h2, cfg.activation)
+        else:
+            out, aux = moe_lib.apply_moe(p["moe"], cfg, h2,
+                                         with_aux=mode == "full")
+        x = x + out
+    return x, new_cache, aux
 
 
 def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 caches: Optional[List[Params]] = None, cache_index=None,
                 cache_len: int = 0, sink: Optional[Callable] = None
-                ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
+                ) -> Tuple[torch.Tensor, Optional[List[Params]],
+                           Optional[torch.Tensor]]:
     """Loop the block pattern over repetitions. ``caches`` (decode) is
     updated in place; prefill returns freshly stacked caches (every leaf a
     block returns, stacked over repetitions), or, given a ``sink``, hands
-    each layer's cache to ``sink(position, rep, cache)`` and returns none."""
+    each layer's cache to ``sink(position, rep, cache)`` and returns none.
+    The third result is, in ``"full"`` mode, the MoE layers' aux loss
+    summed in layer order (f32; zero without MoE layers), else ``None``."""
     pattern = block_pattern(cfg)
     reps = num_reps(cfg)
     filled: List[Dict[str, List[torch.Tensor]]] = [{} for _ in pattern]
+    aux = torch.zeros((), device=x.device) if mode == "full" else None
     for r in range(reps):
         for pos, spec in enumerate(pattern):
             c_in = None
             if caches is not None:
                 c_in = {n: a[r] for n, a in caches[pos].items()}
-            x, c_out = _apply_block(spec, _rep(blocks[pos], r), cfg, x,
-                                    positions, mode, c_in, cache_index,
-                                    cache_len)
+            x, c_out, a = _apply_block(spec, _rep(blocks[pos], r), cfg, x,
+                                       positions, mode, c_in, cache_index,
+                                       cache_len)
+            if a is not None:
+                aux = aux + a
             if mode == "prefill" and sink is not None:
                 sink(pos, r, c_out)
             elif mode == "prefill":
                 for n, leaf in c_out.items():
                     filled[pos].setdefault(n, []).append(leaf)
     if mode == "prefill" and sink is None:
-        return x, [{n: torch.stack(v) for n, v in f.items()} for f in filled]
-    return x, caches
+        return x, [{n: torch.stack(v) for n, v in f.items()}
+                   for f in filled], aux
+    return x, caches, aux
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens
@@ -269,13 +293,14 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits. Returns (logits (B, S, V) f32, aux_loss 0)."""
+    """Full-sequence logits. Returns (logits (B, S, V) f32, the MoE
+    layers' summed aux loss (f32 scalar; 0 without MoE layers))."""
     _check_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch["tokens"])
-    x, _ = _run_blocks(params["blocks"], cfg, x, positions, "full")
+    x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full")
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)
-    return logits, torch.zeros((), device=x.device)
+    return logits, aux
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -292,8 +317,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         raise ValueError(
             f"prefill: cache_len={cache_len} is smaller than the prompt "
             f"({x.shape[1]} tokens); the cache would drop prompt positions")
-    x, caches = _run_blocks(params["blocks"], cfg, x, positions, "prefill",
-                            cache_len=cache_len)
+    x, caches, _ = _run_blocks(params["blocks"], cfg, x, positions,
+                               "prefill", cache_len=cache_len)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x[:, -1:], cfg.tie_embeddings)[:, 0]
     return logits, {"blocks": caches}
@@ -315,8 +340,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     widen_ssm_cache(cache, x.dtype)
     b = x.shape[0]
     ci = torch.broadcast_to(torch.as_tensor(cache_index, device=dev), (b,))
-    x, _ = _run_blocks(params["blocks"], cfg, x, ci.reshape(b, 1), "decode",
-                       caches=cache["blocks"], cache_index=ci)
+    x, _, _ = _run_blocks(params["blocks"], cfg, x, ci.reshape(b, 1),
+                          "decode", caches=cache["blocks"], cache_index=ci)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)[:, 0]
     return logits, cache
@@ -430,8 +455,8 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
             for n, leaf in c_out.items():
                 pool["blocks"][pos][n][r, dst] = \
                     leaf[src].to(pool["blocks"][pos][n].dtype)
-    x, caches = _run_blocks(params["blocks"], cfg, x, positions, "prefill",
-                            cache_len=cache_len, sink=sink)
+    x, caches, _ = _run_blocks(params["blocks"], cfg, x, positions,
+                               "prefill", cache_len=cache_len, sink=sink)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     last_i = torch.clamp(torch.as_tensor(true_lens, device=x.device).long()
                          - 1, 0, s - 1)

@@ -2,7 +2,7 @@
 move to the CPU.
 
 * In a fresh interpreter, importing every ``repro_torch`` module (the
-  baselines, admission, scenarios and fleet modules among them) and
+  baselines, admission, scenarios, fleet and MoE modules among them) and
   ``chip_smoke`` leaves neither ``jax`` (nor ``jaxlib``) nor any ``repro``
   module in ``sys.modules``.
 * The entry points default to ``device="cuda"``: without a CUDA device they
@@ -39,11 +39,12 @@ for n in NEW_MODULES:
         bad.append('missing:' + n)
 print(len(names), ' '.join(bad))
 """
-# the serving layer's numpy copies: baselines, admission, scenarios and the
-# elastic fleet
+# the serving layer's numpy copies (baselines, admission, scenarios, the
+# elastic fleet) and the mixture-of-experts FFN
 NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
                "repro_torch.serving.baselines", "repro_torch.distributed",
-               "repro_torch.distributed.fault_tolerance")
+               "repro_torch.distributed.fault_tolerance",
+               "repro_torch.models.moe")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -54,7 +55,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, *bad = out.stdout.split()
-    assert int(n_modules) >= 63
+    assert int(n_modules) >= 64
     assert bad == []
 
 

@@ -184,6 +184,32 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, kv_dtype, atol,
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,kv_dtype,atol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("b,h,kv,c,lens", [
+    # qwen2-moe-a2.7b's fused decode: 8 slots of 512, a group of 1
+    (8, 16, 16, 512, [1, 2, 33, 256, 511, 512, 100, 64]),
+    # jamba-v0.1's batch-1 steps after a 200-token prompt: a group of 4
+    (1, 32, 8, 204, [201]), (1, 32, 8, 204, [204])])
+def test_decode_attention_kernel_at_moe_and_hybrid_heads(cuda, dtype,
+                                                         kv_dtype, atol, b,
+                                                         h, kv, c, lens):
+    q = torch.from_numpy(_rand(4, (b, h, 128))).to(cuda, dtype)
+    pool = torch.from_numpy(_rand(5, (2, b, c, kv, 128))).to(cuda, kv_dtype)
+    vpool = torch.from_numpy(_rand(6, (2, b, c, kv, 128))).to(cuda,
+                                                              kv_dtype)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, pool[1], vpool[1], vl)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1 and out.dtype == dtype
+    ref = tref.decode_attention_ref(q.float(), pool[1].float(),
+                                    vpool[1].float(), vl)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 4, 64, device=cuda)
     k = torch.zeros(2, 16, 2, 64, device=cuda)
@@ -249,6 +275,26 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, atol, s, causal,
     assert flash_attention.launches == before + 1
     ref = tref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kv", [(16, 16), (32, 8)])
+@pytest.mark.parametrize("s", [1, 16, 17, 64, 129, 200])
+def test_flash_attention_kernel_at_moe_and_hybrid_heads(cuda, dtype, atol,
+                                                        h, kv, s):
+    """Batch-1 exact-length prefills at hd 128: qwen2-moe-a2.7b's heads
+    (H 16 = KV 16) over its prompt lengths, jamba-v0.1's (H 32 over KV
+    8)."""
+    q = torch.from_numpy(_rand(7, (1, s, h, 128))).to(cuda, dtype)
+    k = torch.from_numpy(_rand(8, (1, s, kv, 128))).to(cuda, dtype)
+    v = torch.from_numpy(_rand(9, (1, s, kv, 128))).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == dtype
+    ref = tref.flash_attention_ref(q.float(), k.float(), v.float())
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
@@ -768,11 +814,14 @@ def _check_fused_replay(eng, k, mode="ewma", beta=0.35):
     return eng.graphs.replays == replays + 1
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_fused_graphs_match_eager_calls_bit_for_bit(cuda, arch):
     """Every replay of the bucketed prefill (qwen2) and of the fused decode
     at k 1 and 3 equals the direct eager call, at least twice each on new
-    inputs; the first call of a key is its eager warm-up."""
+    inputs; the first call of a key is its eager warm-up. The MoE decode
+    (routing, the sorted dispatch, the ordered combine) replays bit-equal
+    too."""
     eng = _graph_engine(cuda, arch)
     rng = np.random.default_rng(0)
 
