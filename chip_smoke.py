@@ -23,11 +23,17 @@ launch counts include graph replays.
              at qwen3-32b's (H 64, KV 8, hd 128), olmo-1b's (B 4, H 16
              = KV 16, hd 128, S and C 200-208), qwen2-moe-a2.7b's (H 16 =
              KV 16, hd 128: decode at B 8, C 512, flash at B 1, S 16 and
-             200) and jamba-v0.1's (H 32, KV 8, hd 128 at B 1: decode at
-             C 204, flash at S 200) (top2gap bit-exact with
-             planted ties, also at the classifier's B 64, V 2; bf16
+             200), jamba-v0.1's (H 32, KV 8, hd 128 at B 1: decode at
+             C 204, flash at S 200), seamless-m4t's (H 16 = KV 16, hd 64:
+             flash full at B 4, S 500, and Sq 32 over Sk 500; decode at
+             B 4, C 500, all valid), internvl2's (flash causal at B 4,
+             S 456) and h2o-danube's hd 80 (H 32, KV 8: flash at window
+             4,096, B 1, S 4,200; decode at B 1 over the full 4,096-slot
+             ring and at B 8, C 512) (top2gap bit-exact with
+             planted ties, also at the classifier's B 64, V 2 and at the
+             new vocabs, B 4 x 256,206, B 4 x 151,655, B 1 x 32,000; bf16
              attention within 2e-2 of the f32 plain version, f32
-             attention at qwen3-32b's heads within 1e-5; the selective
+             attention at qwen3-32b's and danube's heads within 1e-5; the selective
              scan within 2e-4, f32 throughout) and
              times kernel, plain version and the PyTorch library call that
              computes the same function where one exists (a yardstick the
@@ -130,7 +136,30 @@ launch counts include graph replays.
              prefill held against ``forward`` as in serve_moe (a), the
              steps against a teacher-forced forward printed only; peak
              memory under JAMBA_PEAK_LIMIT.
-10. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
+10. forward_seamless — seamless-m4t-large-v2 at full width (24 encoder
+             and 24 decoder layers, d 1024, 16 = 16 KV heads at hd 64,
+             GeGLU, LayerNorm with bias, tied head, vocab 256,206; 3.55 GB
+             of bf16), B 4: random source frames (4, 500, 1024), a
+             32-token decoder prompt, 16 teacher-forced decode steps, each
+             served position's logits against ``forward`` within
+             FORWARD_LOGIT_TOL. The encoder runs the flash kernel's full
+             form, cross attention the full form over the 500 source keys
+             at forward and prefill and the decode kernel (every key
+             valid) in each step; launches counted per formula; the
+             card's GELU held to the tanh form.
+11. forward_internvl — internvl2-1b at full width (24 layers, d 896, 14
+             heads over 2 KV at hd 64, vocab 151,655), B 4: 256 random
+             prefix embeddings (4, 256, 1024) before a 200-token prompt (a
+             causal prefill over 456 positions), 8 teacher-forced steps
+             against ``forward``.
+12. forward_danube — h2o-danube-1.8b at full width (24 layers, d 2560, 32
+             heads over 8 KV at hd 80, window 4,096, untied head), B 1: a
+             4,200-token prompt past the window (the prefill cache cut and
+             rolled into the 4,096-slot ring), 8 decode steps on the ring
+             against ``forward`` over 4,208 tokens. Phases 10-12 print the
+             prefill's and each step's host and device ms, peak memory,
+             the step's weight-read bound and the H100 cost model's step.
+13. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
              beside the profiler windows' device ms per decode step for
              the four token models (and the time to read every weight a
              step reads: for the MoE all 64 experts, where the model
@@ -138,7 +167,7 @@ launch counts include graph replays.
              and device ms from the trace window's profiled repeat); the
              ``--workload qwen`` plan and DES through the serve CLI's own
              functions (qwen3-32b must place on one card).
-11. serve_tiny — the paper's one-shot classifier lifecycle through
+14. serve_tiny — the paper's one-shot classifier lifecycle through
              ``repro_torch.launch.serve``'s own functions: the tiny family
              (five transformers, d 16-96) trains on the card, every member
              is profiled through the ``EngineBackend`` that serves it, the
@@ -158,8 +187,8 @@ launch counts include graph replays.
              and idle share) and a real run at the reference's default
              2000 qps (numbers only) follow, and ``serve_tiny_fidelity``
              puts real p95 beside the simulator's at both loads.
-12. serve_baselines — the paper's baselines (``serving/baselines.py``)
-             over the family and profiles of phase 11 (not trained
+15. serve_baselines — the paper's baselines (``serving/baselines.py``)
+             over the family and profiles of phase 14 (not trained
              again). ``serve_baselines_grid``: the paper's Fig. 7 on the
              simulator, the fewest logical devices (1-8, binary search)
              with which CascadeServe's plan, DynBa's grid and MS+'s grid
@@ -169,14 +198,14 @@ launch counts include graph replays.
              factor, and Cocktail+'s time-averaged active devices on 8.
              Then DynBa (the most accurate model) and MS+ through
              ``build_plan`` on the threaded ``CascadeServer`` with the
-             policy's selector, at 60 and 2,000 qps as in phase 11, each
+             policy's selector, at 60 and 2,000 qps as in phase 14, each
              beside the simulator's run of the same policy and trace, and
              a ``serve_baselines`` line with CascadeServe's runs of phase
              11. Checks: at 60 qps at least 95 % done, every request
              served within its gear's cascade, top2gap launched once per
              executed batch in every run, and Cocktail+'s ``build_plan``
              refusing its ensemble gears.
-13. serve_tenants — the reference CLI's two-tenant example
+16. serve_tenants — the reference CLI's two-tenant example
              (``interactive:latency:0.3:600:2,batch:latency:1.0:600:1``)
              planned by ``plan_multi_tenant`` for the 2 logical devices,
              both tenants' azure-like traces superposed and served by the
@@ -280,6 +309,19 @@ JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 16             # 2 of its 4 block periods: ~52 GB of bf16
 JAMBA_STEPS = 4               # decode steps after its 200-token prefill
 JAMBA_PEAK_LIMIT = 60e9       # bytes allocated at most in forward_jamba
+# the encoder-decoder, the vision prefix and hd 80 (forward_seamless,
+# forward_internvl, forward_danube): B, decoder or text prompt, decode steps
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_B, SEAMLESS_SRC, SEAMLESS_PROMPT, SEAMLESS_STEPS = 4, 500, 32, 16
+INTERNVL_ARCH = "internvl2-1b"
+INTERNVL_B, INTERNVL_TEXT, INTERNVL_STEPS = 4, 200, 8
+DANUBE_ARCH = "h2o-danube-1.8b"
+DANUBE_B, DANUBE_PROMPT, DANUBE_STEPS = 1, 4200, 8   # past its 4,096 window
+# bf16 prefill / decode logits against forward over the same inputs, as
+# OLMO_LOGIT_TOL: logits of std ~0.6-1.0 after 24 layers of bf16 GEMM
+# outputs (48 with seamless's encoder) whose shapes differ between paths
+FORWARD_LOGIT_TOL = 0.25
+NEW_PEAK_LIMIT = 20e9         # bytes allocated at most in each of the three
 N_SLOTS, MAX_LEN, SPEC_K = 8, 512, 4
 N_REQ, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 16, 200
 MIN_TOKENS, EARLY_MARGIN = 4, 0.5
@@ -440,13 +482,17 @@ def _time_top2gap(x) -> dict:
 def kernel_top2gap(dev) -> dict:
     """At the qwen2 vocab (151,936, the row's headline shape at B 8, and
     at B 1, where reference mode and the teacher-forced checks reduce),
-    the falcon-mamba vocab (65,024), jamba's (65,536) at B 1, and a
+    the falcon-mamba vocab (65,024), jamba's (65,536) at B 1, a
     4,096-wide row, whose time is almost all the kernel's fixed cost
-    (launch, cluster barrier, one round trip to device memory)."""
+    (launch, cluster barrier, one round trip to device memory), and the
+    vocabs of seamless-m4t (256,206 at B 4), internvl2 (151,655 at B 4;
+    both odd widths, so every odd row starts off a 16-byte boundary) and
+    h2o-danube (32,000 at B 1)."""
     worst = 0.0
     timed = {}
     for b, v in ((1, 151936), (8, 151936), (8, 65024), (1, 65536),
-                 (8, 4096)):
+                 (8, 4096), (SEAMLESS_B, 256206), (INTERNVL_B, 151655),
+                 (DANUBE_B, 32000)):
         x = torch.randn(b, v, generator=_gen(b), device=dev) * 3.0
         # planted exact top-1 ties far apart (other threads, other warps):
         # row 0 two-way, and at B > 1 the last row three-way
@@ -465,8 +511,9 @@ def kernel_top2gap(dev) -> dict:
         if b > 1:
             check(int(idx[b - 1]) == 3 and float(gap[b - 1]) == 0.0,
                   "top2gap three-way tie -> gap 0, lowest index")
-        worst = max(worst, float((gap - rgap).abs().max()))
-        timed[b, v] = _time_top2gap(x)
+        err = float((gap - rgap).abs().max())
+        worst = max(worst, err)
+        timed[b, v] = dict(_time_top2gap(x), max_abs_err=err)
     # the classifier path's shape: (B, 2) f32 scores, ties in row 0 and
     # in the last row
     x = torch.randn(TINY_BATCH, 2, generator=_gen(2), device=dev)
@@ -479,11 +526,16 @@ def kernel_top2gap(dev) -> dict:
           f"top2gap bit-equal at B={TINY_BATCH}, V=2")
     check(int(idx[0]) == 0 and float(gap[0]) == 0.0,
           "top2gap V=2 tie -> gap 0, index 0")
-    timed[TINY_BATCH, 2] = _time_top2gap(x)
-    return dict(name="top2gap", max_abs_err=worst, **timed[8, 151936],
-                at_v65024=timed[8, 65024], at_b1=timed[1, 151936],
-                at_b1_v65536=timed[1, 65536], at_v4096=timed[8, 4096],
-                at_b64_v2=timed[TINY_BATCH, 2])
+    timed[TINY_BATCH, 2] = dict(_time_top2gap(x), max_abs_err=0.0)
+    row = dict(name="top2gap", **timed[8, 151936],
+               at_v65024=timed[8, 65024], at_b1=timed[1, 151936],
+               at_b1_v65536=timed[1, 65536], at_v4096=timed[8, 4096],
+               at_b64_v2=timed[TINY_BATCH, 2],
+               at_seamless=timed[SEAMLESS_B, 256206],
+               at_internvl=timed[INTERNVL_B, 151655],
+               at_danube=timed[DANUBE_B, 32000])
+    row["max_abs_err"] = worst
+    return row
 
 
 def _time_decode(dev, b, h, kv, d, c, vl, seed) -> dict:
@@ -558,8 +610,12 @@ def kernel_decode(dev) -> dict:
     16, a group of 1, hd 128, C 208, valid 201-208); at qwen2-moe-a2.7b's
     (B 8, H 16 = KV 16, hd 128, C 512, the same valid lengths) and at
     jamba-v0.1's (B 1, H 32, KV 8: a group of 4, hd 128, C 204, its last
-    decode step's 204 valid); and in f32 at qwen3-32b's heads, the f32
-    depth-cut check's decode."""
+    decode step's 204 valid); seamless-m4t's cross attention in a decode
+    step (B 4, H 16 = KV 16, hd 64, C 500, every row valid to 500: one
+    query over the encoder's keys); h2o-danube's hd 80 (H 32, KV 8) over
+    its full 4,096-slot ring at B 1 and at B 8, C 512, qwen2's valid
+    lengths; and in f32 at qwen3-32b's heads, the f32 depth-cut check's
+    decode, and at danube's."""
     vl = torch.tensor([1, 2, 100, 256, 300, 511, 512, 512],
                       dtype=torch.int32, device=dev)
     qwen2 = _time_decode(dev, N_SLOTS, 14, 2, 64, MAX_LEN, vl, seed=7)
@@ -574,13 +630,91 @@ def kernel_decode(dev) -> dict:
     jamba = _time_decode(dev, 1, 32, 8, 128, jamba_c,
                          torch.tensor([jamba_c], dtype=torch.int32,
                                       device=dev), seed=15)
-    f32 = _check_decode_f32(dev, N_SLOTS, 64, 8, 128, MAX_LEN, vl, seed=10)
+    seamless = _time_decode(dev, SEAMLESS_B, 16, 16, 64, SEAMLESS_SRC,
+                            torch.full((SEAMLESS_B,), SEAMLESS_SRC,
+                                       dtype=torch.int32, device=dev),
+                            seed=16)
+    ring = 4096
+    danube = _time_decode(dev, 1, 32, 8, 80, ring,
+                          torch.tensor([ring], dtype=torch.int32,
+                                       device=dev), seed=17)
+    danube_b8 = _time_decode(dev, N_SLOTS, 32, 8, 80, MAX_LEN, vl, seed=18)
+    f32 = max(_check_decode_f32(dev, N_SLOTS, 64, 8, 128, MAX_LEN, vl,
+                                seed=10),
+              _check_decode_f32(dev, N_SLOTS, 32, 8, 80, MAX_LEN, vl,
+                                seed=19))
     row = dict(name="decode_attention", **qwen2, at_qwen3=qwen3,
                at_olmo=olmo, at_moe=moe, at_jamba=jamba,
-               f32_at_qwen3_max_abs_err=f32)
+               at_seamless=seamless, at_danube=danube,
+               at_danube_b8=danube_b8,
+               f32_at_qwen3_and_danube_max_abs_err=f32)
     row["max_abs_err"] = max(r["max_abs_err"]
-                             for r in (qwen2, qwen3, olmo, moe, jamba))
+                             for r in (qwen2, qwen3, olmo, moe, jamba,
+                                       seamless, danube, danube_b8))
     return row
+
+
+def _time_flash(dev, b, sq, sk, h, kv, d, causal, window, seed) -> dict:
+    """bf16 flash attention at one shape (full over Sk keys, causal, or
+    windowed), checked against the f32 plain version (and, causal, a
+    right-padded prompt's rows bit-identical to an unpadded call) and
+    timed beside it and SDPA (a boolean mask for the window)."""
+    g = _gen(seed)
+
+    def make():
+        return (torch.randn(b, sq, h, d, generator=g, device=dev).bfloat16(),
+                torch.randn(b, sk, kv, d, generator=g, device=dev)
+                .bfloat16(),
+                torch.randn(b, sk, kv, d, generator=g, device=dev)
+                .bfloat16())
+
+    q, k, v = make()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    rout = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = float((out.float() - rout).abs().max())
+    del rout
+    form = ("full" if not causal else
+            f"window {window}" if window else "causal")
+    check(err <= ATTN_TOL, f"flash_attention B={b} Sq={sq} Sk={sk} H={h} "
+                           f"KV={kv} hd={d} {form} within {ATTN_TOL} "
+                           f"({err})")
+    if causal:
+        # a ragged prompt right-padded into the bucket: its real rows are
+        # bit-identical to an unpadded call
+        n = max(sq - 23, 1)
+        part = flash_attention(q[:, :n].contiguous(), k[:, :n].contiguous(),
+                               v[:, :n].contiguous(), window=window)
+        check(torch.equal(part, out[:, :n]),
+              f"flash_attention right padding invisible (S={sq}, n={n})")
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+    sets = [make() for _ in range(copies(nbytes))]
+    kms = device_ms([lambda t=t: flash_attention(
+        *t, causal=causal, window=window) for t in sets])
+    pms = device_ms([lambda t=t: ref.flash_attention_ref(
+        *t, causal=causal, window=window) for t in sets], reps=3,
+        per_window=4)
+    if causal and window:
+        i = torch.arange(sq, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa = dict(attn_mask=mask)
+        pairs = int(mask.sum())
+    else:
+        sdpa = dict(is_causal=causal)
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    lms = device_ms([lambda t=t: F.scaled_dot_product_attention(
+        t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2),
+        enable_gqa=True, **sdpa) for t in sets])
+    flops = 4 * d * b * h * pairs
+    bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    return dict(shape=f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} hd={d} {form} "
+                      f"bf16", max_abs_err=err, ms=kms, plain_ms=pms,
+                library_ms=lms,
+                library=f"F.scaled_dot_product_attention({form}, "
+                        f"enable_gqa)",
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                bound_flops=flops)
 
 
 def kernel_flash(dev) -> dict:
@@ -590,62 +724,26 @@ def kernel_flash(dev) -> dict:
     16, hd 128) at B 4 and its forward's S 208 and prefill's S 200;
     qwen2-moe-a2.7b's exact-length batch-1 prefills (H 16 = KV 16, hd
     128) at the longest prompt (S 200) and a short one (S 16); jamba-v0.1's
-    (H 32, KV 8, hd 128) at B 1, S 200. Then f32 at qwen3-32b's heads, as
-    the f32 depth-cut check runs it: its engine's B 4 x 256 bucket and the
-    batch-1 forward of the first request (204 tokens)."""
-    g = _gen(11)
-    worst = 0.0
-    timed = {}
+    (H 32, KV 8, hd 128) at B 1, S 200. Then the forms of the
+    encoder-decoder, vision-prefix and hd-80 paths:
+    seamless-m4t's encoder (full, B 4, S 500, H 16 = KV 16, hd 64) and
+    cross attention at prefill (full, Sq 32 over Sk 500), internvl2's
+    prefill (causal, B 4, S 456 = 256 prefix + 200 text, H 14, KV 2) and
+    h2o-danube's (window 4,096, B 1, S 4,200, H 32, KV 8, hd 80). Then f32
+    at qwen3-32b's heads, as the f32 depth-cut check runs it: its
+    engine's B 4 x 256 bucket and the batch-1 forward of the first
+    request (204 tokens); and at danube's hd 80, windowed."""
     olmo_s = PROMPT_HI + OLMO_STEPS
-    for b, s, h, kv, d in ((N_SLOTS, 64, 14, 2, 64),
-                           (N_SLOTS, 256, 14, 2, 64),
-                           (N_SLOTS, 256, 64, 8, 128),
-                           (OLMO_BATCH, olmo_s, 16, 16, 128),
-                           (OLMO_BATCH, PROMPT_HI, 16, 16, 128),
-                           (1, PROMPT_HI, 16, 16, 128),
-                           (1, PROMPT_LO, 16, 16, 128),
-                           (1, PROMPT_HI, 32, 8, 128)):
-
-        def make(b=b, s=s, h=h, kv=kv, d=d):
-            return (torch.randn(b, s, h, d, generator=g, device=dev)
-                    .bfloat16(),
-                    torch.randn(b, s, kv, d, generator=g, device=dev)
-                    .bfloat16(),
-                    torch.randn(b, s, kv, d, generator=g, device=dev)
-                    .bfloat16())
-        q, k, v = make()
-        out = flash_attention(q, k, v)
-        rout = ref.flash_attention_ref(q.float(), k.float(), v.float())
-        # a ragged prompt right-padded into the bucket: its real rows are
-        # bit-identical to an unpadded call
-        n = max(s - 23, 1)
-        part = flash_attention(q[:, :n].contiguous(), k[:, :n].contiguous(),
-                               v[:, :n].contiguous())
-        torch.cuda.synchronize()
-        err = float((out.float() - rout).abs().max())
-        check(err <= ATTN_TOL, f"flash_attention B={b} S={s} H={h} KV={kv} "
-                               f"hd={d} within {ATTN_TOL} ({err})")
-        check(torch.equal(part, out[:, :n]),
-              f"flash_attention right padding invisible (S={s}, n={n})")
-        worst = max(worst, err)
-        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
-        sets = [make() for _ in range(copies(nbytes))]
-        kms = device_ms([lambda t=t: flash_attention(*t) for t in sets])
-        pms = device_ms([lambda t=t: ref.flash_attention_ref(*t)
-                         for t in sets])
-        lms = device_ms([lambda t=t: F.scaled_dot_product_attention(
-            t[0].transpose(1, 2), t[1].transpose(1, 2),
-            t[2].transpose(1, 2), is_causal=True, enable_gqa=True)
-            for t in sets])
-        flops = 4 * d * b * h * s * (s + 1) // 2
-        bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        timed[b, s, h] = dict(shape=f"B={b} S={s} H={h} KV={kv} hd={d} "
-                                    f"causal bf16", max_abs_err=err,
-                              ms=kms, plain_ms=pms, library_ms=lms,
-                              library="F.scaled_dot_product_attention("
-                                      "causal, enable_gqa)",
-                              bound_ms=bms, bound_by=by, bound_bytes=nbytes,
-                              bound_flops=flops)
+    timed = {(b, s, h): _time_flash(dev, b, s, s, h, kv, d, True, 0,
+                                    seed=30 + i)
+             for i, (b, s, h, kv, d) in enumerate((
+                 (N_SLOTS, 64, 14, 2, 64), (N_SLOTS, 256, 14, 2, 64),
+                 (N_SLOTS, 256, 64, 8, 128),
+                 (OLMO_BATCH, olmo_s, 16, 16, 128),
+                 (OLMO_BATCH, PROMPT_HI, 16, 16, 128),
+                 (1, PROMPT_HI, 16, 16, 128), (1, PROMPT_LO, 16, 16, 128),
+                 (1, PROMPT_HI, 32, 8, 128)))}
+    g = _gen(11)
     f32 = 0.0
     for b, s in ((4, 256), (1, 204)):
         q = torch.randn(b, s, 64, 128, generator=g, device=dev)
@@ -659,6 +757,29 @@ def kernel_flash(dev) -> dict:
                                    f"KV=8 hd=128 within {F32_ATTN_TOL} "
                                    f"({err})")
         f32 = max(f32, err)
+    q = torch.randn(1, 300, 32, 80, generator=g, device=dev)
+    k = torch.randn(1, 300, 8, 80, generator=g, device=dev)
+    v = torch.randn(1, 300, 8, 80, generator=g, device=dev)
+    out = flash_attention(q, k, v, window=100)
+    rout = ref.flash_attention_ref(q, k, v, window=100)
+    torch.cuda.synchronize()
+    err = float((out - rout).abs().max())
+    check(err <= F32_ATTN_TOL, f"f32 flash_attention hd=80 window 100 "
+                               f"within {F32_ATTN_TOL} ({err})")
+    f32 = max(f32, err)
+    seamless = _time_flash(dev, SEAMLESS_B, SEAMLESS_SRC, SEAMLESS_SRC, 16,
+                           16, 64, False, 0, seed=20)
+    cross = _time_flash(dev, SEAMLESS_B, SEAMLESS_PROMPT, SEAMLESS_SRC, 16,
+                        16, 64, False, 0, seed=21)
+    n_vlm = get_config(INTERNVL_ARCH).frontend.num_prefix_embeddings \
+        + INTERNVL_TEXT
+    internvl = _time_flash(dev, INTERNVL_B, n_vlm, n_vlm, 14, 2, 64, True, 0,
+                           seed=22)
+    danube = _time_flash(dev, DANUBE_B, DANUBE_PROMPT, DANUBE_PROMPT, 32, 8,
+                         80, True, get_config(DANUBE_ARCH).sliding_window,
+                         seed=23)
+    worst = max(r["max_abs_err"] for r in (*timed.values(), seamless, cross,
+                                           internvl, danube))
     row = dict(name="flash_attention", **timed[N_SLOTS, 256, 14],
                at_s64=timed[N_SLOTS, 64, 14],
                at_qwen3=timed[N_SLOTS, 256, 64],
@@ -667,7 +788,9 @@ def kernel_flash(dev) -> dict:
                at_moe=timed[1, PROMPT_HI, 16],
                at_moe_s16=timed[1, PROMPT_LO, 16],
                at_jamba=timed[1, PROMPT_HI, 32],
-               f32_at_qwen3_max_abs_err=f32)
+               at_seamless=seamless, at_seamless_cross=cross,
+               at_internvl=internvl, at_danube=danube,
+               f32_at_qwen3_and_danube_max_abs_err=f32)
     row["max_abs_err"] = worst
     return row
 
@@ -1428,6 +1551,228 @@ def phase_forward_jamba(dev) -> dict:
     return launches
 
 
+def _decode_read_bytes(params, cfg, cache) -> int:
+    """Bytes a decode step must read at least: the decoder's blocks and
+    final norm, the LM head (the tied embedding, or the untied head: an
+    untied embedding table is only gathered), and an enc-dec cache's
+    cross K/V; not the encoder, nor the frontend projection."""
+    head = params["embed"]["embedding" if cfg.tie_embeddings else "lm_head"]
+    trees = (params["blocks"], params["final_norm"], head,
+             cache.get("cross", []))
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in _leaves(tree))
+
+
+def _forward_phase(dev, phase: str, cfg, extra: dict, b: int, s: int,
+                   n: int, expect: dict, extra_row: dict) -> dict:
+    """One model at full width in bf16 (seed 0), no engine, the way a
+    user drives ``models/model.py``: ``forward`` over prompt and n more
+    tokens (with ``extra``: source frames or prefix embeddings), a
+    ``prefill`` of the prompt, n teacher-forced ``decode_step`` calls, and
+    both argmax reductions through top2gap. Launch counters are zeroed
+    just before and read just after and must equal ``expect``. Every
+    served position's logits (the prefill's last and each step's) against
+    ``forward``'s at the same position within FORWARD_LOGIT_TOL, and the
+    top2gap kernel's argmax of the two equal wherever forward's top-2 gap
+    exceeds twice the largest logit difference (where no flip can come
+    from the logits themselves); agreement where the gap exceeds 0.1 is
+    printed. Prints the prefill's and each step's host ms and the span
+    between CUDA events around it, then, after the counts are read, one
+    more step and one more prefill inside torch.profiler windows for
+    their device-busy ms and kernels (the step's idle share against the
+    unprofiled host median); peak memory, the step's weight-read bound
+    and the H100 cost model's step for the same batch and context.
+    Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.profiling import cost_model as CM
+
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    pre = (cfg.frontend.num_prefix_embeddings
+           if "prefix_embeddings" in extra else 0)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + n)).astype(np.int32)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    full, _ = model_lib.forward(params, cfg, {"tokens": toks, **extra})
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+    (last, cache), prefill_ms, prefill_dev_ms = timed(
+        lambda: model_lib.prefill(params, cfg, {"tokens": toks[:, :s],
+                                                **extra},
+                                  cache_len=pre + s + n + 1))
+    steps, step_ms, step_dev_ms = [last], [], []
+    for i in range(n):
+        (logits, cache), ms, dms = timed(
+            lambda i=i: model_lib.decode_step(
+                params, cfg, toks[:, s + i:s + i + 1], cache, pre + s + i))
+        steps.append(logits)
+        step_ms.append(ms)
+        step_dev_ms.append(dms)
+    served = torch.stack(steps, 1)                      # (B, n + 1, V)
+    ref_tail = full[:, pre + s - 1:pre + s + n]         # same positions
+    fgap, fidx = top2gap(ref_tail.reshape(-1, cfg.vocab_size).contiguous())
+    _, sidx = top2gap(served.reshape(-1, cfg.vocab_size).contiguous())
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    err = float((served - ref_tail).abs().max())
+    clear = fgap > 2 * err
+    agreed = int((fidx[clear] == sidx[clear]).sum())
+    read = _decode_read_bytes(params, cfg, cache)
+    context = pre + s + n
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        model_lib.decode_step(params, cfg, toks[:, -1:], cache, context)
+        torch.cuda.synchronize()
+    step_kernels = _device_kernels(prof, 1)
+    step_busy = sum(k[0] for k in step_kernels)
+    del cache
+    with profile(activities=acts) as prof:
+        model_lib.prefill(params, cfg, {"tokens": toks[:, :s], **extra},
+                          cache_len=context + 1)
+        torch.cuda.synchronize()
+    prefill_busy = sum(k[0] for k in _device_kernels(prof, 1))
+    row = {"phase": phase, "arch": cfg.name, "batch": b,
+           "prefix_len": pre, "prompt_len": s, "decode_steps": n,
+           "param_bytes": param_bytes, "step_read_bytes": read,
+           "weight_read_bound_step_ms": read / HBM_BYTES_PER_S * 1e3,
+           "prefill_ms": prefill_ms, "prefill_event_ms": prefill_dev_ms,
+           "prefill_device_busy_ms": prefill_busy,
+           "step_ms": step_ms, "step_event_ms": step_dev_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "step_device_busy_ms": step_busy,
+           "step_kernels": sum(k[1] for k in step_kernels),
+           "step_idle_share": 1.0 - step_busy / statistics.median(step_ms),
+           "step_top": [{"ms": t, "launches": c, "kernel": name[:90]}
+                        for t, c, name in step_kernels[:8]],
+           "analytic_step_ms": CM.analytic_runtime(cfg, b, context,
+                                                   "decode", 1) * 1e3,
+           "logit_std": float(ref_tail.float().std()),
+           "max_logit_err": err, "tol": FORWARD_LOGIT_TOL,
+           "positions_checked": int(clear.sum()), "agreed": agreed,
+           "agreed_at_0.1": int((fidx[fgap > 0.1] == sidx[fgap > 0.1])
+                                .sum()),
+           "checked_at_0.1": int((fgap > 0.1).sum()),
+           "finite": bool(torch.isfinite(full).all()
+                          and torch.isfinite(served).all()),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "limit_bytes": NEW_PEAK_LIMIT, "launches": launches,
+           "expected_launches": expect, **extra_row}
+    row["measured_device_over_analytic"] = step_busy \
+        / row["analytic_step_ms"]
+    emit(row)
+    check(row["finite"], f"{phase} logits finite")
+    check(err <= FORWARD_LOGIT_TOL,
+          f"{phase} prefill/decode logits within {FORWARD_LOGIT_TOL} of "
+          f"forward ({err})")
+    check(agreed == int(clear.sum()),
+          f"{phase} argmax agrees where forward's gap > {2 * err} "
+          f"({agreed}/{int(clear.sum())})")
+    for name, want in expect.items():
+        check(launches[name] == want,
+              f"{phase} {name} launches {launches[name]} == {want}")
+    check(row["max_memory_allocated_bytes"] < NEW_PEAK_LIMIT,
+          f"{phase} peak memory under {NEW_PEAK_LIMIT} bytes")
+    return launches
+
+
+def phase_forward_seamless(dev) -> dict:
+    """seamless-m4t-large-v2 at full width (24 encoder and 24 decoder
+    layers, d 1024, 16 = 16 KV heads at hd 64, GeGLU with the tanh GELU,
+    LayerNorm with bias, tied head, vocab 256,206; about 1.77 B
+    parameters) in bf16: SEAMLESS_B rows of random source frames (B, 500,
+    1024) bf16 (10 s of audio at the w2v-BERT frontend's 20 ms frames),
+    a SEAMLESS_PROMPT-token decoder prompt, SEAMLESS_STEPS teacher-forced
+    steps (``_forward_phase``). Launches: flash 24 encoder (full form) +
+    24 decoder self (causal) + 24 cross (full form over the 500 source
+    keys) in each of ``forward`` and ``prefill``; decode attention 24 self
+    + 24 cross (every key valid) per step; top2gap 2. Also holds the
+    card's GELU to the tanh form the reference uses (``jax.nn.gelu``'s
+    default)."""
+    cfg = get_config(SEAMLESS_ARCH)
+    g = _gen(24)
+    frames = torch.randn(SEAMLESS_B, SEAMLESS_SRC,
+                         cfg.frontend.frontend_dim, generator=g,
+                         device=dev).bfloat16()
+    h = torch.randn(4096, generator=g, device=dev) * 3.0
+    tanh_form = 0.5 * h * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                            * (h + 0.044715 * h ** 3)))
+    gelu_err = float((F.gelu(h, approximate="tanh") - tanh_form).abs().max())
+    erf_gap = float((F.gelu(h) - tanh_form).abs().max())
+    check(gelu_err <= 1e-5 < erf_gap,
+          f"GeGLU's GELU is the tanh form ({gelu_err}; the erf form is "
+          f"{erf_gap} away)")
+    layers, enc = cfg.num_layers, cfg.encdec.num_encoder_layers
+    n = SEAMLESS_STEPS
+    expect = {"flash_attention": 2 * (enc + 2 * layers),
+              "decode_attention": 2 * layers * n, "top2gap": 2,
+              "mamba_scan": 0}
+    return _forward_phase(dev, "forward_seamless", cfg,
+                          {"source_frames": frames}, SEAMLESS_B,
+                          SEAMLESS_PROMPT, n, expect,
+                          {"source_len": SEAMLESS_SRC,
+                           "encoder_layers": enc,
+                           "gelu_tanh_max_err": gelu_err,
+                           "gelu_erf_gap": erf_gap})
+
+
+def phase_forward_internvl(dev) -> dict:
+    """internvl2-1b at full width (24 layers, d 896, 14 heads over 2 KV at
+    hd 64, QKV bias, tied head, vocab 151,655; about 0.49 B parameters) in
+    bf16: INTERNVL_B rows of 256 random prefix embeddings (B, 256, 1024)
+    bf16 (the stub InternViT's patch rows, projected by ``frontend_proj``)
+    before an INTERNVL_TEXT-token prompt, so the prefill is causal over
+    456 positions, then INTERNVL_STEPS teacher-forced steps from position
+    456 (``_forward_phase``). Launches: flash 24 in each of ``forward``
+    and ``prefill``, decode attention 24 per step, top2gap 2."""
+    cfg = get_config(INTERNVL_ARCH)
+    prefix = torch.randn(INTERNVL_B, cfg.frontend.num_prefix_embeddings,
+                         cfg.frontend.frontend_dim, generator=_gen(25),
+                         device=dev).bfloat16()
+    n = INTERNVL_STEPS
+    expect = {"flash_attention": 2 * cfg.num_layers,
+              "decode_attention": cfg.num_layers * n, "top2gap": 2,
+              "mamba_scan": 0}
+    return _forward_phase(dev, "forward_internvl", cfg,
+                          {"prefix_embeddings": prefix}, INTERNVL_B,
+                          INTERNVL_TEXT, n, expect, {})
+
+
+def phase_forward_danube(dev) -> dict:
+    """h2o-danube-1.8b at full width (24 layers, d 2560, 32 heads over 8
+    KV at hd 80, window 4,096, untied head, vocab 32,000; about 1.83 B
+    parameters) in bf16, batch 1: a DANUBE_PROMPT-token prompt, past the
+    window, so the prefill's cache is cut to the last 4,096 positions and
+    rolled into the ring, then DANUBE_STEPS decode steps on the full ring
+    against ``forward`` over 4,208 tokens (``_forward_phase``). Launches:
+    flash 24 in each of ``forward`` and ``prefill`` (windowed, hd 80),
+    decode attention 24 per step (hd 80), top2gap 2."""
+    cfg = get_config(DANUBE_ARCH)
+    check(cfg.head_dim == 80 and DANUBE_PROMPT > cfg.sliding_window,
+          "danube runs at hd 80 past its window")
+    n = DANUBE_STEPS
+    expect = {"flash_attention": 2 * cfg.num_layers,
+              "decode_attention": cfg.num_layers * n, "top2gap": 2,
+              "mamba_scan": 0}
+    return _forward_phase(dev, "forward_danube", cfg, {}, DANUBE_B,
+                          DANUBE_PROMPT, n, expect,
+                          {"window": cfg.sliding_window,
+                           "ring_slots": model_lib.attn.kv_cache_len(
+                               cfg, DANUBE_PROMPT + n)})
+
+
 def _depth_cut_f32(params, n_layers: int):
     """The first ``n_layers`` repetitions of a dense model's params in
     float32, built leaf by leaf while the full-depth bf16 leaves are
@@ -2059,7 +2404,7 @@ def phase_cost_model(traces: dict, qwen3: dict, param_bytes: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the one-shot classifier cascade (train, profile, plan, serve)
+# phase 14: the one-shot classifier cascade (train, profile, plan, serve)
 # ---------------------------------------------------------------------------
 
 class _Recording:
@@ -2329,7 +2674,7 @@ def phase_serve_tiny(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the paper's baselines (Fig. 7 on the DES, real runs on the card)
+# phase 15: the paper's baselines (Fig. 7 on the DES, real runs on the card)
 # ---------------------------------------------------------------------------
 
 def _min_devices(check) -> "int | None":
@@ -2522,7 +2867,7 @@ def phase_serve_baselines(tiny: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: two tenants on one shared fleet (MultiTenantServer)
+# phase 16: two tenants on one shared fleet (MultiTenantServer)
 # ---------------------------------------------------------------------------
 
 def phase_serve_tenants(tiny: dict) -> dict:
@@ -2652,6 +2997,12 @@ def main() -> int:
     paths["forward_jamba"] = phase_forward_jamba(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    for name, phase in (("forward_seamless", phase_forward_seamless),
+                        ("forward_internvl", phase_forward_internvl),
+                        ("forward_danube", phase_forward_danube)):
+        paths[name] = phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     phase_cost_model({s["trace"]["arch"]: s["trace"]
                       for s in summaries.values()}, summaries["serve_qwen3"],
                      {s["trace"]["arch"]: s["by_stage"][s["trace"]["stage"]]
@@ -2690,7 +3041,10 @@ def main() -> int:
                          "shape", "max_abs_err", "ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms")}
                         for at in ("at_qwen3", "at_olmo", "at_moe",
-                                   "at_jamba") if at in t}})
+                                   "at_jamba", "at_seamless",
+                                   "at_seamless_cross", "at_internvl",
+                                   "at_danube", "at_danube_b8")
+                        if at in t}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -36,7 +36,12 @@
 // strides the wrapper passes: no transpose, copy or host-side descriptor
 // per step. Only positions < valid_len[b] are read, so ragged rows cost
 // what they hold. q may be f32 over a bf16 cache (f32 activations over the
-// engine's bf16 slot pool), as the model's f32 runs attend. hd 32, 64, 128.
+// engine's bf16 slot pool), as the model's f32 runs attend. hd 32, 64, 80,
+// 128. Where 32 divides hd a lane owns hd / 32 neighbouring output
+// columns; at hd 80 (h2o-danube) it owns columns lane, lane + 32 and, for
+// lanes below 16, lane + 64, and a row of 160 (or 320) bytes, which no
+// 128-byte line holds whole, is swizzled within each line by the line's
+// index instead of the row's.
 //
 // C entry point: decode_attention_launch(q, k, v, valid_len, out, B, H, KV,
 // C, D, k_sb, k_sc, v_sb, v_sc, dtype, stream): q and out (B, H, D)
@@ -112,20 +117,25 @@ struct Geo {
   static constexpr int NST = kRingBytes / STAGE > 4 ? 4
                            : kRingBytes / STAGE < 2 ? 2
                            : kRingBytes / STAGE;
-  static constexpr int DPL = D / 32;               // output columns per lane
+  // output columns per lane: D / 32 neighbours where 32 divides D (SPLIT),
+  // else ceil(D / 32) columns 32 apart, the last one not every lane's
+  static constexpr bool SPLIT = D % 32 == 0;
+  static constexpr int DPL = (D + 31) / 32;
   // q_s, part_acc: kGMax x D f32; p_s: kWarps x kTile; part_m, part_l
   static constexpr int SMEM = NST * STAGE + 2 * kGMax * D * 4
                             + kWarps * kTile * 4 + 2 * kGMax * 4;
 };
 
 // byte offset of chunk c of tile row j: the chunk's index inside its
-// 128-byte line is XORed with the row (rows of 128 bytes or more) or with
-// the line (64-byte rows, two to a line), so the 8 lanes of a phase that
-// read chunk c of 8 consecutive rows hit 8 different bank groups
+// 128-byte line is XORed with the row (rows of a whole number of lines) or
+// with the line (64-byte rows, two to a line, and hd 80's rows, which
+// straddle lines), so the 8 lanes of a phase that read chunk c of 8
+// consecutive rows hit different bank groups; either key permutes the
+// chunks of a line among themselves
 template <int RB>
 __device__ __forceinline__ int swz(int j, int c) {
   const int o = j * RB + c * 16;
-  const int key = RB >= 128 ? (j & 7) : ((o >> 7) & 7);
+  const int key = RB % 128 == 0 ? (j & 7) : ((o >> 7) & 7);
   return (o & ~127) | ((((o >> 4) & 7) ^ key) << 4);
 }
 
@@ -236,14 +246,29 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       p_s[g * kTile + lane] = p;
       __syncwarp();
       const int jn = min(kTile, hi - t0);
-      const int byte = lane * DPL * static_cast<int>(sizeof(T));
+      if constexpr (G_::SPLIT) {
+        const int byte = lane * DPL * static_cast<int>(sizeof(T));
 #pragma unroll 4
-      for (int jj = 0; jj < jn; ++jj) {
-        const T* vr = reinterpret_cast<const T*>(
-            vst + swz<G_::RB>(jj, byte >> 4) + (byte & 15));
-        const float pj = p_s[g * kTile + jj];
+        for (int jj = 0; jj < jn; ++jj) {
+          const T* vr = reinterpret_cast<const T*>(
+              vst + swz<G_::RB>(jj, byte >> 4) + (byte & 15));
+          const float pj = p_s[g * kTile + jj];
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, to_f(vr[i]), acc[i]);
+          for (int i = 0; i < DPL; ++i)
+            acc[i] = fmaf(pj, to_f(vr[i]), acc[i]);
+        }
+      } else {
+#pragma unroll 4
+        for (int jj = 0; jj < jn; ++jj) {
+          const float pj = p_s[g * kTile + jj];
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int byte = (lane + 32 * i) * static_cast<int>(sizeof(T));
+            if (lane + 32 * i < D)
+              acc[i] = fmaf(pj, to_f(*reinterpret_cast<const T*>(
+                  vst + swz<G_::RB>(jj, byte >> 4) + (byte & 15))), acc[i]);
+          }
+        }
       }
       __syncwarp();
     }
@@ -258,7 +283,10 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       part_l[g] = l;
     }
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) part_acc[g * D + lane * DPL + i] = acc[i];
+    for (int i = 0; i < DPL; ++i) {
+      const int col = G_::SPLIT ? lane * DPL + i : lane + 32 * i;
+      if (col < D) part_acc[g * D + col] = acc[i];
+    }
   }
   cluster.sync();
   if (rank == 0) {
@@ -318,6 +346,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                  k_sc, v_sb, v_sc, stream);
     case 64:
       return launch_d<TQ, T, 64>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
+                                 k_sc, v_sb, v_sc, stream);
+    case 80:
+      return launch_d<TQ, T, 80>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
                                  k_sc, v_sb, v_sc, stream);
     case 128:
       return launch_d<TQ, T, 128>(q, k, v, valid_len, out, B, H, KV, C,

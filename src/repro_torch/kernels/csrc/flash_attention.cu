@@ -1,11 +1,16 @@
-// Causal (optionally sliding-window) or full flash attention with GQA.
+// Causal (optionally sliding-window) or full flash attention with GQA; the
+// full (non-causal) form also over keys of a length of their own (the
+// encoder-decoder's cross attention: Sq decoder queries over Sk encoder
+// keys).
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention_pallas (the TPU kernel runs the grid (B, H, S/BQ, S/BK)
 // with KV blocks innermost, carrying online-softmax state in VMEM scratch;
 // its K/V index map sends query head h to KV head h // G). It is the
 // function of models/attention.py prefill_attention / attention_forward,
-// which the model runs in every layer at every prefill.
+// which the model runs in every layer at every prefill, and of the
+// encoder's self-attention and the decoder's cross attention (is_causal
+// False).
 //
 // Bound on the H100: at prefill lengths of a few hundred tokens the causal
 // score and P.V products (4 * hd flops per query-key pair and head) are
@@ -23,7 +28,8 @@
 // of the query tile once and of 64-key K and V tiles of KV head h / G into
 // a 2-stage shared-memory ring, each completion reported to an mbarrier;
 // the consumers release a stage through a second mbarrier. Tiles land
-// 128-byte swizzled (64-byte at hd 32), hd 128 as two 64-column boxes. Per
+// 128-byte swizzled (64-byte at hd 32, 32-byte at hd 80), hd 128 as two
+// 64-column boxes, hd 80 as five 16-column ones. Per
 // key tile the warpgroup runs S = Q.K^T on wgmma (m64n64k16, Q and K from
 // shared memory, f32 accumulators), scales the f32 scores (so no rounding
 // is added to q), updates the online softmax in registers (row max and sum
@@ -43,7 +49,14 @@
 // layout through one 4-D tensor map each (hd, heads, S, B), encoded on the
 // host per call from the strides the wrapper passes; the TMA unit
 // zero-fills rows past S on loads and clips them on the store, so no
-// transpose or copy is made. hd 32, 64 and 128.
+// transpose or copy is made. hd 32, 64, 80 and 128. hd 80 (h2o-danube) has
+// 160-byte rows, which no 128-byte swizzle atom divides: its tiles are
+// stored as five 16-column chunks with the 32-byte swizzle (five TMA boxes
+// a tile), so Q.K^T takes its five k-steps from the five chunks and P.V is
+// one m64n80k16 wgmma whose B operand strides over them.
+// Queries run to S and keys to Sk: the key-tile walk, the tail mask and
+// the K/V tensor maps use Sk, the query tiles and the Q and output maps S.
+// Causal and windowed calls need Sk == S (the wrapper raises otherwise).
 //
 // f32 design (dtype 0; parity runs only): CUDA cores, one thread per query
 // row, 32-key K/V tiles staged in shared memory, online softmax in f32.
@@ -51,8 +64,9 @@
 // hd 128 the per-thread query and accumulator rows exceed the register
 // file and ptxas spills them to local memory: correct, and slow.
 //
-// C entry point: flash_attention_launch(q, k, v, out, B, S, H, KV, D, q_sb,
-// q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, dtype, stream);
+// C entry point: flash_attention_launch(q, k, v, out, B, S, Sk, H, KV, D,
+// q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, dtype,
+// stream);
 // head stride D and element stride 1 for every tensor; dtype 0 = float32,
 // 1 = bfloat16.
 
@@ -76,7 +90,7 @@ template <int D>
 __global__ void __launch_bounds__(kRows)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int S, int H, int KV, long long q_sb, long long q_ss,
+                 int S, int Sk, int H, int KV, long long q_sb, long long q_ss,
                  long long k_sb, long long k_ss, long long v_sb,
                  long long v_ss, long long o_sb, long long o_ss, int causal,
                  int window, float scale) {
@@ -113,9 +127,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = -INFINITY, l = 0.f;
 
   // keys this block's rows can see: [k_lo, k_hi)
-  int k_hi = S, k_lo = 0;
+  int k_hi = Sk, k_lo = 0;
   if (causal) {
-    k_hi = min(S, q0 + kRows);
+    k_hi = min(Sk, q0 + kRows);
     if (window > 0) k_lo = max(0, q0 - window + 1) / kKeys * kKeys;
   }
   const float* kb = k + b * k_sb + static_cast<long long>(kvh) * D;
@@ -128,10 +142,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kj = kt + r;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
       reinterpret_cast<float4*>(&k_s[r][0])[c] =
-          kj < S ? __ldg(reinterpret_cast<const float4*>(kb + kj * k_ss) + c)
+          kj < Sk ? __ldg(reinterpret_cast<const float4*>(kb + kj * k_ss) + c)
                  : z;
       reinterpret_cast<float4*>(&v_s[r][0])[c] =
-          kj < S ? __ldg(reinterpret_cast<const float4*>(vb + kj * v_ss) + c)
+          kj < Sk ? __ldg(reinterpret_cast<const float4*>(vb + kj * v_ss) + c)
                  : z;
     }
     __syncthreads();
@@ -142,7 +156,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kKeys; ++r) {
       const int kj = kt + r;
-      bool keep = kj < S;
+      bool keep = kj < Sk;
       if (causal) {
         keep = keep && kj <= qi;
         if (window > 0) keep = keep && kj > qi - window;
@@ -193,7 +207,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int KV,
+                       void* out, int B, int S, int Sk, int H, int KV,
                        long long q_sb, long long q_ss, long long k_sb,
                        long long k_ss, long long v_sb, long long v_ss,
                        long long o_sb, long long o_ss, int causal, int window,
@@ -201,7 +215,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_f32_kernel<D><<<grid, kRows, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, q_sb,
+      static_cast<const float*>(v), static_cast<float*>(out), S, Sk, H, KV,
+      q_sb,
       q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
@@ -219,16 +234,21 @@ constexpr int kThreads = kConsumers + 32;   // + the producer warp
 
 // Shared-memory geometry of one 64-row bf16 tile at head width D: stored
 // as D / CC column chunks of 64 rows x CC columns, each row SW bytes and
-// swizzled by the TMA unit in SW-byte atoms of 8 rows.
+// swizzled by the TMA unit in SW-byte atoms of 8 rows. A row of 128 bytes
+// or a multiple takes the 128-byte swizzle, hd 32's 64-byte row the
+// 64-byte one, hd 80's 160-byte row five 32-byte chunks.
 template <int D>
 struct Geo {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;   // swizzle bytes
+  static constexpr int SW = D * 2 % 128 == 0 ? 128
+                          : D * 2 == 64 ? 64 : 32;        // swizzle bytes
   static constexpr int CC = SW / 2;                       // chunk columns
   static constexpr int NCH = D / CC;                      // chunks per row
   static constexpr int CHUNK_BYTES = 64 * SW;
   static constexpr int TILE_BYTES = 64 * D * 2;
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte,
+  // 3 = 32-byte
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(D % CC == 0 && D % 16 == 0, "hd must split into chunks");
   static constexpr int SMEM = (1 + 2 * kStages) * TILE_BYTES + 1024 + 64;
 };
 
@@ -392,6 +412,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -445,6 +490,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          uint64_t db) {
   if constexpr (D == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 80) wgmma_rs_n80(o, a, db);
   else wgmma_rs_n128(o, a, db);
 }
 
@@ -453,8 +499,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap to, int S, int H,
-                  int KV, int causal, int window, float scale_log2) {
+                  const __grid_constant__ CUtensorMap to, int S, int Sk,
+                  int H, int KV, int causal, int window, float scale_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -474,9 +520,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.y;
   const int kvh = h / (H / KV);
   // keys this block's rows can see: [k_lo, k_hi), walked in 64-key tiles
-  int k_hi = S, k_lo = 0;
+  int k_hi = Sk, k_lo = 0;
   if (causal) {
-    k_hi = min(S, q0 + kBM);
+    k_hi = min(Sk, q0 + kBM);
     if (window > 0) k_lo = max(0, q0 - window + 1);
   }
   const int t_lo = k_lo / kBN;
@@ -550,7 +596,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // mask the tiles that cross an edge; the row max is taken on the raw
     // scores (the scale is positive) and scaled once per row
     const int kt = (t_lo + i) * kBN;
-    const bool mask = kt + kBN > S
+    const bool mask = kt + kBN > Sk
         || (causal && (kt + kBN - 1 > q0
                        || (window > 0 && kt < q0 + kBM - window)));
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -561,7 +607,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (mask) {
           const int key = kt + 8 * j + cq + (e & 1);
           const int row = r0 + 8 * (e >> 1);
-          bool keep = key < S;
+          bool keep = key < Sk;
           if (causal) {
             keep = keep && key <= row;
             if (window > 0) keep = keep && key > row - window;
@@ -706,14 +752,15 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                    const_cast<void*>(ptr), dims, strides, box, elem,
                    CU_TENSOR_MAP_INTERLEAVE_NONE,
                    G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                   : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int KV,
+                        void* out, int B, int S, int Sk, int H, int KV,
                         long long q_sb, long long q_ss, long long k_sb,
                         long long k_ss, long long v_sb, long long v_ss,
                         long long o_sb, long long o_ss, int causal,
@@ -727,8 +774,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   // pool, which each replay overwrites in place.
   CUtensorMap tq, tk, tv, to;
   if (!make_map<D>(&tq, q, B, S, H, q_sb, q_ss)
-      || !make_map<D>(&tk, k, B, S, KV, k_sb, k_ss)
-      || !make_map<D>(&tv, v, B, S, KV, v_sb, v_ss)
+      || !make_map<D>(&tk, k, B, Sk, KV, k_sb, k_ss)
+      || !make_map<D>(&tv, v, B, Sk, KV, v_sb, v_ss)
       || !make_map<D>(&to, out, B, S, H, o_sb, o_ss))
     return cudaErrorInvalidValue;
   // once per instantiation (at its first, eager launch), not at every
@@ -739,7 +786,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (allowed != cudaSuccess) return allowed;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
   flash_bf16_kernel<D><<<grid, kThreads, G::SMEM, stream>>>(
-      tq, tk, tv, to, S, H, KV, causal, window,
+      tq, tk, tv, to, S, Sk, H, KV, causal, window,
       1.4426950408889634f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -748,26 +795,29 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
-    int H, int KV, int D, long long q_sb, long long q_ss, long long k_sb,
-    long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-    long long o_ss, int causal, int window, int dtype, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535
-      || (S + 63) / 64 > 65535)
+    int Sk, int H, int KV, int D, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    long long o_sb, long long o_ss, int causal, int window, int dtype,
+    void* stream) {
+  if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535
+      || H > 65535 || (S + 63) / 64 > 65535 || (causal && Sk != S))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, out, B, S, H, KV, q_sb, q_ss, k_sb, k_ss, v_sb, \
-                   v_ss, o_sb, o_ss, causal, window, s
+#define FLASH_ARGS q, k, v, out, B, S, Sk, H, KV, q_sb, q_ss, k_sb, k_ss, \
+                   v_sb, v_ss, o_sb, o_ss, causal, window, s
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (D) {
       case 32: err = launch_f32<32>(FLASH_ARGS); break;
       case 64: err = launch_f32<64>(FLASH_ARGS); break;
+      case 80: err = launch_f32<80>(FLASH_ARGS); break;
       case 128: err = launch_f32<128>(FLASH_ARGS); break;
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: err = launch_bf16<32>(FLASH_ARGS); break;
       case 64: err = launch_bf16<64>(FLASH_ARGS); break;
+      case 80: err = launch_bf16<80>(FLASH_ARGS); break;
       case 128: err = launch_bf16<128>(FLASH_ARGS); break;
     }
   }

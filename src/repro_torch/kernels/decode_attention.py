@@ -21,7 +21,7 @@ from repro_torch.kernels import build, counts, ref
 __all__ = ["decode_attention", "MAX_GROUP", "HEAD_DIMS"]
 
 MAX_GROUP = 8              # query heads per KV head the kernel serves
-HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 80, 128)  # head widths the kernel is instantiated for
 # (q dtype, cache dtype) -> the kernel's dtype code; f32 q over a bf16
 # cache is how f32 params attend over the engine's bf16 slot pool
 _DTYPES = {(torch.float32, torch.float32): 0,

@@ -12,9 +12,10 @@ upcasts, in the model's layouts:
                              its ``(B, C, KV, hd)`` layout, keys
                              ``< valid_len[b]`` per row;
 * ``flash_attention_ref``  — causal (optionally windowed) or full
-                             attention over ``(B, S, H, hd)`` queries and
-                             ``(B, S, KV, hd)`` keys/values, GQA by head
-                             grouping (query head h reads KV head h // G);
+                             attention over ``(B, Sq, H, hd)`` queries and
+                             ``(B, Sk, KV, hd)`` keys/values (Sk == Sq
+                             unless full), GQA by head grouping (query
+                             head h reads KV head h // G);
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
                              the output and the last state.
@@ -78,11 +79,15 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype.
-    Query i sees key j iff j <= i and (window == 0 or j > i - window);
-    ``causal=False`` sees every key."""
+    """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
+    dtype. Query i sees key j iff j <= i and (window == 0 or j > i -
+    window), which needs Sk == Sq; ``causal=False`` sees every key."""
     b, s, h, d = q.shape
     kv = k.shape[2]
+    if causal and k.shape[1] != s:
+        raise ValueError(f"flash_attention_ref: the causal and windowed "
+                         f"forms need as many keys as queries (Sq {s}, Sk "
+                         f"{k.shape[1]})")
     g = h // kv
     qf = q.float().reshape(b, s, kv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(d)

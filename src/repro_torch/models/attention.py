@@ -1,10 +1,14 @@
-"""GQA attention: full-sequence (train/prefill) and single-token decode
-against a KV cache, flat or sliding-window ring (port of
-``repro/models/attention.py:41-272``).
+"""GQA attention: full-sequence (train/prefill, causal or the encoder's
+full form) and single-token decode against a KV cache, flat or
+sliding-window ring, and the encoder-decoder's cross attention (port of
+``repro/models/attention.py:41-272`` and ``:377-410``).
 
 Where the JAX model computes attention in jnp, the port calls the kernels:
 ``prefill_attention`` and ``attention_forward`` run ``flash_attention``,
-``decode_attention`` runs the decode kernel. For CPU tensors the kernel
+``decode_attention`` runs the decode kernel, and cross attention runs
+``flash_attention`` in its full form over the encoder's keys (prefill,
+forward) or the decode kernel with every key valid (a decode step's one
+query per row). For CPU tensors the kernel
 wrappers run their plain versions. The sharding hooks (``constrain``,
 ``decode_attention_sharded``) are not ported yet.
 
@@ -28,7 +32,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import Params, apply_rope
 
 __all__ = ["kv_cache_len", "attention_forward", "prefill_attention",
-           "decode_attention"]
+           "decode_attention", "make_cross_kv", "cross_attention",
+           "cross_attention_cached"]
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
@@ -59,14 +64,18 @@ def _head_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def attention_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention (scoring, no cache output); the
-    non-causal encoder form comes with the enc-dec slice."""
+                      positions: torch.Tensor, *, is_causal: bool = True
+                      ) -> torch.Tensor:
+    """Full-sequence self-attention (scoring, no cache output): causal
+    (windowed under a sliding window), or with ``is_causal=False`` the
+    encoder's form, every query over every key (RoPE still applied, no
+    window)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = flash_attention(q, k, v, causal=is_causal,
+                          window=cfg.sliding_window if is_causal else 0)
     return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
 
 
@@ -140,3 +149,43 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = decode_kernel(q[:, 0], cache["k"], cache["v"], valid_len)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def make_cross_kv(p: Params, cfg: ModelConfig, memory: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project encoder memory (B, Sk, D) -> cross K/V (B, Sk, KV, hd): raw
+    ``wk``/``wv``, no bias, no RoPE."""
+    b, sk, _ = memory.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    ck = (memory @ p["wk"]).reshape(b, sk, kv, hd)
+    cv = (memory @ p["wv"]).reshape(b, sk, kv, hd)
+    return ck, cv
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor) -> torch.Tensor:
+    """x (B, Sq, D) attends to encoder memory (B, Sk, D): no mask, no
+    RoPE."""
+    ck, cv = make_cross_kv(p, cfg, memory)
+    return cross_attention_cached(p, cfg, x, ck, cv)
+
+
+def cross_attention_cached(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           ck: torch.Tensor, cv: torch.Tensor
+                           ) -> torch.Tensor:
+    """Cross attention against precomputed K/V (B, Sk, KV, hd), every key
+    valid. One query per row (a decode step) is the decode kernel's form,
+    with ``valid_len = Sk``; more queries run the flash kernel's full form
+    over Sk keys."""
+    b, sq, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, sq, h, hd)
+    if sq == 1:
+        out = decode_kernel(q[:, 0], ck, cv, ck.shape[1])
+    else:
+        out = flash_attention(q, ck, cv, causal=False)
+    return out.reshape(b, sq, h * hd) @ p["wo"]

@@ -1,17 +1,27 @@
 """Model assembly for attention, SSM (Mamba-1), mixture-of-experts and
-hybrid decoders (port of ``repro/models/model.py:52-142``, ``:149-265``,
-``:312-330``, ``:365-547``, ``:554-585``).
+hybrid decoders, the encoder-decoder and the vision prefix (port of
+``repro/models/model.py:52-142``, ``:149-309``, ``:312-330``,
+``:347-547``, ``:554-585``).
 
 The parameter dict keeps the JAX pytree's layout: ``blocks`` is a list with
 one entry per block-pattern position, every leaf stacked over repetitions
 on axis 0. The cache is ``{"blocks": [...]}`` with one dict per position:
 ``{"k", "v"}`` with leaves ``(reps, B, C, KV, hd)`` for attention, and
 ``{"conv" (reps, B, K-1, Di), "ssm" (reps, B, Di, N) f32}`` for an SSM
-mixer. Where JAX scans over repetitions, the port runs a Python loop over
-reps that indexes the stacked tensors (views, no copies).
+mixer. An encoder-decoder's params add ``frontend_proj`` and ``encoder``
+(``{"blocks": [one rep-stacked attention block], "final_norm"}``) and a
+``cross_norm`` + ``cross`` attention in each decoder block; its cache adds
+``"cross"``, one ``{"ck", "cv"}`` per position with leaves ``(reps, B,
+S_src, KV, hd)``, the projected encoder memory. A modality-frontend model
+(the vision prefix) adds ``frontend_proj``, which maps the batch's
+``prefix_embeddings`` in front of the token embeddings. Where JAX scans
+over repetitions, the port runs a Python loop over reps that indexes the
+stacked tensors (views, no copies); where it ``vmap``s the cross K/V over
+them, one rep at a time.
 
 Entry points:
   init_params        — random params from a ``torch.Generator`` (scale 0.02)
+  encode             — the encoder over source frames (enc-dec)
   forward            — full-sequence logits
   prefill            — prompt -> last-position logits + cache
   decode_step        — one token against the cache (updated in place)
@@ -22,11 +32,12 @@ Entry points:
   widen_ssm_cache    — the SSM conv state's one-time widening
   init_cache         — zero cache
 
-Attention and SSM mixers with dense or MoE FFNs are ported, and so every
-decoder-only config (the hybrid interleaves both mixers); encoder-decoder
-and modality-frontend configs raise ``NotImplementedError``. ``forward``
-returns the MoE layers' summed load-balance loss; prefill and decode
-discard it, as the reference does, and do not compute it.
+Every config is ported: attention and SSM mixers with dense or MoE FFNs
+(the hybrid interleaves both mixers), the encoder-decoder (``batch``
+carries ``source_frames``) and the vision prefix (``batch`` carries
+``prefix_embeddings``; positions and ``cache_len`` count the prefix).
+``forward`` returns the MoE layers' summed load-balance loss; prefill and
+decode discard it, as the reference does, and do not compute it.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import to_tensor
 from repro_torch.core import certainty as cert_lib
 from repro_torch.kernels.top2gap import argmax_gap
 from repro_torch.models import attention as attn
@@ -48,7 +60,7 @@ from repro_torch.models.common import (Params, apply_ffn, apply_norm,
                                        embed_tokens, lm_logits)
 
 __all__ = ["LayerSpec", "block_pattern", "num_reps", "init_params",
-           "forward", "prefill", "decode_step", "widen_ssm_cache",
+           "encode", "forward", "prefill", "decode_step", "widen_ssm_cache",
            "decode_fused_steps", "bucketed_prefill_supported",
            "prefill_bucketed", "init_cache"]
 
@@ -91,13 +103,13 @@ def num_reps(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(block_pattern(cfg))
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not yet ported")
-    if cfg.frontend.kind != "none" and cfg.frontend.frontend_dim:
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not "
-                                  f"yet ported")
+# the encoder of an enc-dec arch: one attention block with a dense FFN,
+# stacked over its num_encoder_layers
+_ENCODER_SPEC = LayerSpec("attn", "dense", cross=False)
+
+
+def _has_frontend(cfg: ModelConfig) -> bool:
+    return cfg.frontend.kind != "none" and bool(cfg.frontend.frontend_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +126,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     ``device``. A rep-stacked weight is drawn one repetition at a time,
     and a rep-stacked expert weight one expert of one repetition at a
     time, so the float32 draw never holds more than one layer's (or one
-    expert's) matrix."""
+    expert's) matrix. An encoder-decoder's encoder is one attention block
+    with a dense FFN stacked over its ``num_encoder_layers``."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     reps = num_reps(cfg)
@@ -143,42 +155,56 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             p["bias"] = torch.zeros(lead + (d,), device=dev)
         return p
 
+    def attention(n):
+        a = {"wq": normal(n, d, h * hd), "wk": normal(n, d, kv * hd),
+             "wv": normal(n, d, kv * hd), "wo": normal(n, h * hd, d)}
+        if cfg.qkv_bias:
+            a["bq"] = torch.zeros(n, h * hd, dtype=dtype, device=dev)
+            a["bk"] = torch.zeros(n, kv * hd, dtype=dtype, device=dev)
+            a["bv"] = torch.zeros(n, kv * hd, dtype=dtype, device=dev)
+        if cfg.qk_norm:
+            a["q_norm_scale"] = torch.ones(n, hd, device=dev)
+            a["k_norm_scale"] = torch.ones(n, hd, device=dev)
+        return a
+
+    def block(spec, n):
+        """One block-pattern position's params, stacked over n reps."""
+        blk = {"norm1": norm(n)}
+        if spec.mixer == "ssm":
+            blk["mamba"] = ssm.make_mamba_params(
+                cfg, lambda shape: normal(n, *shape),
+                lambda shape, lo, hi: uniform((n,) + shape, lo, hi),
+                lambda shape, value, dt: torch.full(
+                    (n,) + shape, value, dtype=dt, device=dev), dtype)
+        else:
+            blk["attn"] = attention(n)
+        if spec.cross:
+            blk["cross_norm"] = norm(n)
+            blk["cross"] = attention(n)
+        if spec.ffn != "none":
+            blk["norm2"] = norm(n)
+        if spec.ffn == "dense":
+            blk["ffn"] = {"w_gate": normal(n, d, cfg.d_ff),
+                          "w_up": normal(n, d, cfg.d_ff),
+                          "w_down": normal(n, cfg.d_ff, d)}
+        elif spec.ffn == "moe":
+            blk["moe"] = moe_lib.make_moe_params(
+                cfg, lambda shape, dt=dtype: normal(n, *shape, dt=dt))
+        return blk
+
     embed = {"embedding": normal(cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = normal(d, cfg.vocab_size)
-    blocks = []
-    for spec in block_pattern(cfg):
-        blk = {"norm1": norm(reps)}
-        if spec.mixer == "ssm":
-            blk["mamba"] = ssm.make_mamba_params(
-                cfg, lambda shape: normal(reps, *shape),
-                lambda shape, lo, hi: uniform((reps,) + shape, lo, hi),
-                lambda shape, value, dt: torch.full(
-                    (reps,) + shape, value, dtype=dt, device=dev), dtype)
-        else:
-            a = {"wq": normal(reps, d, h * hd),
-                 "wk": normal(reps, d, kv * hd),
-                 "wv": normal(reps, d, kv * hd),
-                 "wo": normal(reps, h * hd, d)}
-            if cfg.qkv_bias:
-                a["bq"] = torch.zeros(reps, h * hd, dtype=dtype, device=dev)
-                a["bk"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
-                a["bv"] = torch.zeros(reps, kv * hd, dtype=dtype, device=dev)
-            if cfg.qk_norm:
-                a["q_norm_scale"] = torch.ones(reps, hd, device=dev)
-                a["k_norm_scale"] = torch.ones(reps, hd, device=dev)
-            blk["attn"] = a
-        if spec.ffn != "none":
-            blk["norm2"] = norm(reps)
-        if spec.ffn == "dense":
-            blk["ffn"] = {"w_gate": normal(reps, d, cfg.d_ff),
-                          "w_up": normal(reps, d, cfg.d_ff),
-                          "w_down": normal(reps, cfg.d_ff, d)}
-        elif spec.ffn == "moe":
-            blk["moe"] = moe_lib.make_moe_params(
-                cfg, lambda shape, dt=dtype: normal(reps, *shape, dt=dt))
-        blocks.append(blk)
-    return {"embed": embed, "blocks": blocks, "final_norm": norm()}
+    params = {"embed": embed,
+              "blocks": [block(spec, reps) for spec in block_pattern(cfg)],
+              "final_norm": norm()}
+    if _has_frontend(cfg):
+        params["frontend_proj"] = normal(cfg.frontend.frontend_dim, d)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "blocks": [block(_ENCODER_SPEC, cfg.encdec.num_encoder_layers)],
+            "final_norm": norm()}
+    return params
 
 
 def _rep(tree: Any, r: int) -> Any:
@@ -190,6 +216,14 @@ def _rep(tree: Any, r: int) -> Any:
 
 def _device(params: Params) -> torch.device:
     return params["embed"]["embedding"].device
+
+
+def _array(a, device: torch.device) -> torch.Tensor:
+    """A batch input (tensor or numpy array, bf16 numpy included) on
+    ``device``, its dtype kept."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return to_tensor(a, device)
 
 
 def _tokens(tokens, device: torch.device) -> torch.Tensor:
@@ -205,12 +239,14 @@ def _tokens(tokens, device: torch.device) -> torch.Tensor:
 def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
                  x: torch.Tensor, positions: torch.Tensor, mode: str,
                  cache: Optional[Dict[str, torch.Tensor]],
-                 cache_index, cache_len: int
+                 cross_kv: Optional[Dict[str, torch.Tensor]],
+                 cache_index, cache_len: int, is_causal: bool = True
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
                             Optional[torch.Tensor]]:
     """Returns (x, new cache or None, the MoE aux loss or None); the aux
     loss is computed in ``"full"`` mode only, where ``forward`` returns
-    it."""
+    it. A cross block attends to this rep's ``cross_kv`` after its
+    mixer."""
     h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
     new_cache, aux = None, None
     if spec.mixer == "ssm":
@@ -221,7 +257,8 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
         else:
             mix, new_cache = ssm.mamba_decode(p["mamba"], cfg, h, cache)
     elif mode == "full":
-        mix = attn.attention_forward(p["attn"], cfg, h, positions)
+        mix = attn.attention_forward(p["attn"], cfg, h, positions,
+                                     is_causal=is_causal)
     elif mode == "prefill":
         mix, new_cache = attn.prefill_attention(p["attn"], cfg, h, positions,
                                                 cache_len)
@@ -229,6 +266,10 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
         mix, new_cache = attn.decode_attention(p["attn"], cfg, h, cache,
                                                cache_index)
     x = x + mix
+    if spec.cross:
+        hc = apply_norm(p["cross_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x = x + attn.cross_attention_cached(p["cross"], cfg, hc,
+                                            cross_kv["ck"], cross_kv["cv"])
     if spec.ffn != "none":
         h2 = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
         if spec.ffn == "dense":
@@ -242,28 +283,36 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
 
 def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mode: str,
-                caches: Optional[List[Params]] = None, cache_index=None,
-                cache_len: int = 0, sink: Optional[Callable] = None
+                caches: Optional[List[Params]] = None,
+                cross_kv: Optional[List[Params]] = None, cache_index=None,
+                cache_len: int = 0, sink: Optional[Callable] = None,
+                is_causal: bool = True,
+                pattern: Optional[Tuple[LayerSpec, ...]] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Params]],
                            Optional[torch.Tensor]]:
-    """Loop the block pattern over repetitions. ``caches`` (decode) is
+    """Loop the block pattern (``pattern``, by default the config's) over
+    repetitions, as many as ``blocks`` stacks. ``caches`` (decode) is
     updated in place; prefill returns freshly stacked caches (every leaf a
     block returns, stacked over repetitions), or, given a ``sink``, hands
     each layer's cache to ``sink(position, rep, cache)`` and returns none.
-    The third result is, in ``"full"`` mode, the MoE layers' aux loss
-    summed in layer order (f32; zero without MoE layers), else ``None``."""
-    pattern = block_pattern(cfg)
-    reps = num_reps(cfg)
+    ``cross_kv`` (enc-dec) is per position the rep-stacked ``{"ck",
+    "cv"}``. The third result is, in ``"full"`` mode, the MoE layers' aux
+    loss summed in layer order (f32; zero without MoE layers), else
+    ``None``."""
+    pattern = pattern or block_pattern(cfg)
+    reps = next(_stacked(blocks[0])).shape[0]
     filled: List[Dict[str, List[torch.Tensor]]] = [{} for _ in pattern]
     aux = torch.zeros((), device=x.device) if mode == "full" else None
     for r in range(reps):
         for pos, spec in enumerate(pattern):
-            c_in = None
+            c_in = ckv = None
             if caches is not None:
                 c_in = {n: a[r] for n, a in caches[pos].items()}
+            if spec.cross:
+                ckv = {n: a[r] for n, a in cross_kv[pos].items()}
             x, c_out, a = _apply_block(spec, _rep(blocks[pos], r), cfg, x,
-                                       positions, mode, c_in, cache_index,
-                                       cache_len)
+                                       positions, mode, c_in, ckv,
+                                       cache_index, cache_len, is_causal)
             if a is not None:
                 aux = aux + a
             if mode == "prefill" and sink is not None:
@@ -277,14 +326,73 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
     return x, caches, aux
 
 
-def _embed_inputs(params: Params, cfg: ModelConfig, tokens
+def _stacked(tree):
+    """The tensor leaves of a rep-stacked param tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _stacked(v)
+    else:
+        yield tree
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x (B, S, D), positions (B, S))."""
-    tokens = _tokens(tokens, _device(params))
-    x = embed_tokens(params["embed"], tokens)
-    b, s = tokens.shape
+    """(x (B, S_tot, D), positions (B, S_tot)): the token embeddings,
+    after the projected ``prefix_embeddings`` where the batch has them;
+    positions run over prefix and tokens together."""
+    dev = _device(params)
+    x = embed_tokens(params["embed"], _tokens(batch["tokens"], dev))
+    if "prefix_embeddings" in batch:
+        pe = _array(batch["prefix_embeddings"], dev).to(x.dtype) \
+            @ params["frontend_proj"]
+        x = torch.cat([pe, x], dim=1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions
+
+
+def encode(params: Params, cfg: ModelConfig, source) -> torch.Tensor:
+    """The encoder (enc-dec archs) over source frames (B, S_src,
+    frontend_dim) — the stub frontend's precomputed frames, projected by
+    ``frontend_proj`` where their width is the frontend's — through full
+    (non-causal) self-attention blocks and the encoder's final norm.
+    Returns the memory (B, S_src, D)."""
+    x = _array(source, _device(params))
+    if "frontend_proj" in params and \
+            x.shape[-1] == cfg.frontend.frontend_dim:
+        x = x.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    enc = params["encoder"]
+    x, _, _ = _run_blocks(enc["blocks"], cfg, x, positions, "full",
+                          is_causal=False, pattern=(_ENCODER_SPEC,))
+    return apply_norm(enc["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+
+
+def _precompute_cross_kv(params: Params, cfg: ModelConfig,
+                         memory: torch.Tensor) -> List[Params]:
+    """Per block-pattern position the rep-stacked ``{"ck", "cv"}`` (reps,
+    B, S_src, KV, hd) from the encoder memory, one rep at a time."""
+    out = []
+    for pos, spec in enumerate(block_pattern(cfg)):
+        if not spec.cross:
+            out.append({})
+            continue
+        cross = params["blocks"][pos]["cross"]
+        kvs = [attn.make_cross_kv(_rep(cross, r), cfg, memory)
+               for r in range(cross["wk"].shape[0])]
+        out.append({"ck": torch.stack([k for k, _ in kvs]),
+                    "cv": torch.stack([v for _, v in kvs])})
+    return out
+
+
+def _cross_kv(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+              ) -> Optional[List[Params]]:
+    """The encoder's cross K/V for an enc-dec batch, else ``None``."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return _precompute_cross_kv(params, cfg,
+                                encode(params, cfg, batch["source_frames"]))
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +401,14 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits. Returns (logits (B, S, V) f32, the MoE
+    """Full-sequence logits. ``batch``: ``tokens`` (B, S), and
+    ``source_frames`` (enc-dec) or ``prefix_embeddings`` (vision prefix).
+    Returns (logits (B, S_tot, V) f32, prefix positions included; the MoE
     layers' summed aux loss (f32 scalar; 0 without MoE layers))."""
-    _check_ported(cfg)
-    x, positions = _embed_inputs(params, cfg, batch["tokens"])
-    x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full")
+    cross_kv = _cross_kv(params, cfg, batch)
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full",
+                            cross_kv=cross_kv)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)
     return logits, aux
@@ -308,20 +419,27 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     """Process the prompt; returns (last-position logits (B, V) f32, cache).
 
     cache_len is the KV-cache capacity in tokens; ``None`` means the prompt
-    length. An explicit cache_len must cover the prompt."""
-    _check_ported(cfg)
-    x, positions = _embed_inputs(params, cfg, batch["tokens"])
+    length (any modality prefix included). An explicit cache_len must cover
+    the prompt and the prefix. An enc-dec batch runs the encoder once and
+    keeps its cross K/V in ``cache["cross"]``."""
+    cross_kv = _cross_kv(params, cfg, batch)
+    x, positions = _embed_inputs(params, cfg, batch)
     if cache_len is None:
         cache_len = x.shape[1]
     elif cache_len < x.shape[1]:
         raise ValueError(
             f"prefill: cache_len={cache_len} is smaller than the prompt "
-            f"({x.shape[1]} tokens); the cache would drop prompt positions")
+            f"({x.shape[1]} tokens incl. any modality prefix); the cache "
+            f"would drop prompt positions")
     x, caches, _ = _run_blocks(params["blocks"], cfg, x, positions,
-                               "prefill", cache_len=cache_len)
+                               "prefill", cross_kv=cross_kv,
+                               cache_len=cache_len)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x[:, -1:], cfg.tie_embeddings)[:, 0]
-    return logits, {"blocks": caches}
+    cache = {"blocks": caches}
+    if cross_kv is not None:
+        cache["cross"] = cross_kv
+    return logits, cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
@@ -329,7 +447,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     """One-token decode. tokens (B, 1); cache from ``prefill``/
     ``init_cache``, UPDATED IN PLACE (the returned cache is the same
     object); cache_index = tokens already in context, scalar or (B,).
-    Returns (logits (B, V) f32, cache).
+    Returns (logits (B, V) f32, cache). An enc-dec cache's ``"cross"``
+    K/V is read, never written.
 
     An SSM conv state held in a narrower dtype than the activations (the
     engine's bf16 pool under f32 weights) is first widened, once, to the
@@ -341,7 +460,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     b = x.shape[0]
     ci = torch.broadcast_to(torch.as_tensor(cache_index, device=dev), (b,))
     x, _, _ = _run_blocks(params["blocks"], cfg, x, ci.reshape(b, 1),
-                          "decode", caches=cache["blocks"], cache_index=ci)
+                          "decode", caches=cache["blocks"],
+                          cross_kv=cache.get("cross"), cache_index=ci)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)[:, 0]
     return logits, cache
@@ -381,6 +501,8 @@ def decode_fused_steps(params: Params, cfg: ModelConfig,
                           advance nor feed their sampled token forward
     fold_state          — ``device_fold_init`` dict of (B,) tensors
 
+    An enc-dec cache carries its ``"cross"`` K/V through every step.
+
     Returns (token trace (k, B) i32, gap trace (k, B) f32, certainty trace
     (k, B) f32, next input tokens (B,), cache, positions, fold state).
     """
@@ -407,9 +529,7 @@ def bucketed_prefill_supported(cfg: ModelConfig) -> bool:
     """Whether right-padded batched prefill is EXACT for this config: only
     for causal, row-independent stacks (no SSM state, no MoE capacity
     routing, no enc-dec / frontend prompt); see the JAX docstring."""
-    if cfg.is_encoder_decoder or cfg.moe is not None:
-        return False
-    if cfg.frontend.kind != "none" and cfg.frontend.frontend_dim:
+    if cfg.is_encoder_decoder or cfg.moe is not None or _has_frontend(cfg):
         return False
     return all(s.mixer == "attn" for s in block_pattern(cfg))
 
@@ -436,7 +556,7 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
         raise ValueError(
             f"{cfg.name}: bucketed prefill needs an attention-only decoder "
             f"(no SSM state, no MoE capacity routing, no enc-dec/frontend)")
-    x, positions = _embed_inputs(params, cfg, tokens)
+    x, positions = _embed_inputs(params, cfg, {"tokens": tokens})
     b, s = x.shape[0], x.shape[1]
     if cache_len < s:
         raise ValueError(
@@ -472,12 +592,13 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Union[str, torch.device] = "cuda") -> Params:
+               device: Union[str, torch.device] = "cuda",
+               source_len: int = 0) -> Params:
     """Zero decode cache: {"blocks": [...]}, per block-pattern position
     {"k", "v": (reps, B, C, KV, hd)} (attention) or {"conv": (reps, B,
-    K-1, Di), "ssm": (reps, B, Di, N) f32} (SSM)."""
+    K-1, Di), "ssm": (reps, B, Di, N) f32} (SSM); an enc-dec cache adds
+    "cross", per position {"ck", "cv": (reps, B, source_len, KV, hd)}."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     reps = num_reps(cfg)
     shape = (reps, batch, attn.kv_cache_len(cfg, cache_len),
              cfg.num_kv_heads, cfg.head_dim)
@@ -488,4 +609,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         else:
             blocks.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
                            "v": torch.zeros(shape, dtype=dtype, device=dev)})
-    return {"blocks": blocks}
+    cache = {"blocks": blocks}
+    if cfg.is_encoder_decoder:
+        cross_shape = (reps, batch, source_len, cfg.num_kv_heads,
+                       cfg.head_dim)
+        cache["cross"] = [
+            {n: torch.zeros(cross_shape, dtype=dtype, device=dev)
+             for n in ("ck", "cv")} if spec.cross else {}
+            for spec in block_pattern(cfg)]
+    return cache

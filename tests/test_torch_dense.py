@@ -10,8 +10,9 @@ against the JAX package's, on the CPU.
   against the port's own forward at the same tolerance, greedy tokens
   equal up to the first step whose JAX top-2 gap is below 1e-4.
 * The registry: all ten arch ids, smoke configs equal to JAX's field for
-  field, and ``init_params`` refusing the two whose model path is not
-  ported (the encoder-decoder and the vision frontend).
+  field, and ``init_params`` building the encoder-decoder and the vision
+  frontend with the JAX init's tree (their parity tests are in
+  ``tests/test_torch_encdec.py``).
 * The cost model: with the port's ``hw`` set to the TPU v5e values of
   ``repro/profiling/hw.py``, every number and the qwen-family plan equal
   the reference's exactly (the same float arithmetic); on its own H100
@@ -65,7 +66,7 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_TOL = dict(atol=1e-5, rtol=0)
 NEAR = 1e-4
 DENSE = ["olmo-1b", "h2o-danube-1.8b", "qwen3-32b"]
-UNPORTED = ["seamless-m4t-large-v2", "internvl2-1b"]
+ENCDEC_VLM = ["seamless-m4t-large-v2", "internvl2-1b"]
 
 
 def _tokens(seed, shape, vocab=512):
@@ -125,10 +126,33 @@ def test_smoke_config_equals_jax(arch):
         dataclasses.asdict(jax_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
 def test_init_params_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError):
-        TM.init_params(get_smoke_config(arch), device="cpu")
+    """The families this test once saw refused (the encoder-decoder and
+    the vision frontend) are ported: ``init_params`` builds them with the
+    JAX init's tree, shapes and dtypes, and JAX's own params, converted,
+    run ``forward`` to the JAX logits."""
+    cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
+    own = jax.tree.flatten(TM.init_params(cfg, seed=0, device="cpu"))
+    ref = jax.tree.flatten(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    assert own[1] == ref[1]
+    assert [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for t in own[0]] == [(j.shape, str(j.dtype)) for j in ref[0]]
+    tree = jax.tree.map(np.asarray, JM.init_params(
+        jcfg, jax.random.PRNGKey(1), dtype=jnp.float32))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": _tokens(3, (2, 10))}
+    if cfg.is_encoder_decoder:
+        batch["source_frames"] = rng.standard_normal(
+            (2, 12, cfg.frontend.frontend_dim)).astype(np.float32)
+    else:
+        batch["prefix_embeddings"] = rng.standard_normal(
+            (2, cfg.frontend.num_prefix_embeddings,
+             cfg.frontend.frontend_dim)).astype(np.float32)
+    jl, _ = JM.forward(jax.tree.map(jnp.asarray, tree), jcfg,
+                       {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, _ = TM.forward(params_from_numpy(tree, device="cpu"), cfg, batch)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
 
 
 def test_params_carry_across(dense):

@@ -210,6 +210,32 @@ def test_decode_attention_kernel_at_moe_and_hybrid_heads(cuda, dtype,
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,kv_dtype,atol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("b,h,kv,d,c", [
+    # h2o-danube-1.8b's full 4,096-slot ring and its B 8 slot pool
+    (1, 32, 8, 80, 4096), (8, 32, 8, 80, 512),
+    # seamless-m4t's cross attention: one query over 500 encoder keys
+    (4, 16, 16, 64, 500)])
+def test_decode_attention_kernel_every_slot_valid(cuda, dtype, kv_dtype,
+                                                  atol, b, h, kv, d, c):
+    """Every row valid to C (a full ring; the cross attention's
+    ``valid_len = S_src``), at hd 80 and at the cross-attention shape."""
+    q = torch.from_numpy(_rand(41, (b, h, d))).to(cuda, dtype)
+    pool = torch.from_numpy(_rand(42, (2, b, c, kv, d))).to(cuda, kv_dtype)
+    vpool = torch.from_numpy(_rand(43, (2, b, c, kv, d))).to(cuda,
+                                                             kv_dtype)
+    before = decode_attention.launches
+    out = decode_attention(q, pool[1], vpool[1], c)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1 and out.dtype == dtype
+    ref = tref.decode_attention_ref(q.float(), pool[1].float(),
+                                    vpool[1].float(), c)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 4, 64, device=cuda)
     k = torch.zeros(2, 16, 2, 64, device=cuda)
@@ -234,13 +260,14 @@ _DECODE_DTYPES = {0: (torch.float32, torch.float32, 1e-5),
 @pytest.mark.parametrize("code", sorted(_DECODE_DTYPES))
 @pytest.mark.parametrize("g", range(1, 9))
 @pytest.mark.parametrize("c,d", [(512, 64), (4096, 64), (512, 128),
-                                 (4096, 32)])
+                                 (4096, 32), (512, 80), (4096, 80)])
 def test_decode_attention_kernel_cluster_slices(cuda, code, g, c, d):
     """The cluster's 8 slices of a row: valid_len at the slice and tile
     edges (1, 63, 64, 65, 511, 512; at C 4096 also 4095 and 4096, several
     tiles per block), rows with valid_len 1 beside full rows in one call,
     every group size G 1-8 and the three dtype codes, over the layer view
-    of a rep-stacked pool."""
+    of a rep-stacked pool; hd 32, 64, 80 (h2o-danube: three strided
+    output columns a lane, 160-byte rows) and 128."""
     dtype, kv_dtype, atol = _DECODE_DTYPES[code]
     b, kv = 8, 2
     h = g * kv
@@ -298,7 +325,7 @@ def test_flash_attention_kernel_at_moe_and_hybrid_heads(cuda, dtype, atol,
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_flash_attention_kernel_head_dims(cuda, d):
     q = torch.from_numpy(_rand(1, (2, 70, 4, d))).to(cuda)
     k = torch.from_numpy(_rand(2, (2, 70, 2, d))).to(cuda)
@@ -324,14 +351,15 @@ _MODES = {"causal": (True, 0), "window7": (True, 7),
           "window100": (True, 100), "full": (False, 0)}
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 @pytest.mark.parametrize("g,b", [(1, 1), (2, 8), (7, 8)])
 @pytest.mark.parametrize("mode", sorted(_MODES))
 @pytest.mark.parametrize("s", [1, 17, 64, 65, 100, 256, 512])
 def test_flash_attention_bf16_kernel_sweep(cuda, d, g, b, mode, s):
     """The bf16 wgmma kernel against the f32 plain version: S below, at,
     across and past the 64-row tiles, causal, windowed (7 and 100) and
-    full, group sizes 1, 2 and 7, B 1 and 8, hd 32, 64 and 128."""
+    full, group sizes 1, 2 and 7, B 1 and 8, hd 32, 64, 80 (32-byte
+    swizzled tiles, an n80 P.V) and 128."""
     causal, window = _MODES[mode]
     kv = 2 if g > 1 else 1
     h = g * kv
@@ -348,8 +376,66 @@ def test_flash_attention_bf16_kernel_sweep(cuda, d, g, b, mode, s):
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("sq,sk", [(32, 500), (1, 77), (65, 64), (130, 200),
+                                   (17, 1), (500, 500)])
+def test_flash_attention_kernel_keys_of_their_own_length(cuda, dtype, atol,
+                                                         d, sq, sk):
+    """The full form over Sk keys for Sq queries (the encoder-decoder's
+    cross attention at prefill: the encoder's 500 keys for a 32-token
+    decoder prompt; and tails of queries and keys that are not multiples
+    of the 64-row tiles, either longer), GQA group 2, B 3."""
+    b, h, kv = 3, 4, 2
+    q = torch.from_numpy(_rand(51, (b, sq, h, d))).to(cuda, dtype)
+    k = torch.from_numpy(_rand(52, (b, sk, kv, d))).to(cuda, dtype)
+    v = torch.from_numpy(_rand(53, (b, sk, kv, d))).to(cuda, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=False)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("s", [1, 65, 200])
+def test_flash_attention_f32_kernel_at_hd80(cuda, mode, s):
+    """hd 80 (h2o-danube: 32 heads over 8 KV) on the f32 path in all
+    three forms."""
+    causal, window = _MODES[mode]
+    q = torch.from_numpy(_rand(61, (2, s, 32, 80))).to(cuda)
+    k = torch.from_numpy(_rand(62, (2, s, 8, 80))).to(cuda)
+    v = torch.from_numpy(_rand(63, (2, s, 8, 80))).to(cuda)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    """Causal and windowed calls need as many keys as queries; hd 96 has
+    no instantiation; nothing falls back to the plain version."""
+    q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 12, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, causal=True, window=4)
+    wide = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 8, 4, 96, device=cuda,
+                                    dtype=torch.bfloat16), wide, wide,
+                        causal=False)
+    assert flash_attention.launches == before
+
+
 @pytest.mark.parametrize("d,window", [(64, 0), (128, 0), (64, 100),
-                                      (32, 7)])
+                                      (32, 7), (80, 0), (80, 100)])
 def test_flash_attention_kernel_right_padding_at_several_n(cuda, d, window):
     """Real rows of a 256-row bucket are bit-identical to the unpadded call
     for prompts ending inside, at and just past a 64-row tile."""
@@ -414,6 +500,56 @@ def test_dense_smoke_models_on_card_match_cpu(cuda, arch):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     # decode past the window equals the windowed forward on the card
     torch.testing.assert_close(outs[1][2], outs[1][0][:, s:s + 3]
+                               .transpose(0, 1), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-1b",
+                                  "h2o-danube-1.8b@hd80"])
+def test_encdec_vlm_and_hd80_smoke_models_on_card_match_cpu(cuda, arch):
+    """seamless-m4t (encoder-decoder: the encoder's full flash attention,
+    cross attention by flash over the source keys at forward and prefill
+    and by the decode kernel in each step), internvl2 (8 prefix
+    embeddings before the text) and h2o-danube at hd 80 (its smoke config
+    with 2 heads of 80 over 1 KV head, the 64-slot ring) at smoke size in
+    f32: forward, prefill, 3 decode steps and ``decode_fused_steps``
+    through the kernels agree with the CPU plain path within 1e-4, and
+    decode with the card's own forward."""
+    name, _, variant = arch.partition("@")
+    cfg = get_smoke_config(name)
+    if variant:
+        cfg = cfg.scaled(num_heads=2, num_kv_heads=1, head_dim=80)
+    p_cpu = TM.init_params(cfg, seed=3, dtype=torch.float32, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    rng = np.random.default_rng(2)
+    s = 80 if variant else 20
+    toks = rng.integers(0, cfg.vocab_size, (2, s + 3)).astype(np.int32)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["source_frames"] = _rand(3, (2, 70, cfg.frontend.frontend_dim))
+    if cfg.frontend.kind == "vision":
+        extra["prefix_embeddings"] = _rand(
+            4, (2, cfg.frontend.num_prefix_embeddings,
+                cfg.frontend.frontend_dim))
+    n_pre = extra["prefix_embeddings"].shape[1] if cfg.frontend.kind == \
+        "vision" else 0
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        full, _ = TM.forward(p, cfg, {"tokens": toks, **extra})
+        last, cache = TM.prefill(p, cfg, {"tokens": toks[:, :s], **extra},
+                                 cache_len=n_pre + s + 3)
+        steps = [TM.decode_step(p, cfg, toks[:, i:i + 1], cache,
+                                n_pre + i)[0].cpu() for i in range(s, s + 2)]
+        res = TM.decode_fused_steps(
+            p, cfg, torch.as_tensor(toks[:, s + 2], device=dev), cache,
+            torch.full((2,), n_pre + s + 2, dtype=torch.int32, device=dev),
+            torch.ones(2, dtype=torch.bool, device=dev),
+            device_fold_init(2, dev), k=1)
+        outs.append((full.cpu(), last.cpu(), torch.stack(steps),
+                     res[1].cpu()))
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(outs[1][2], outs[1][0][:, n_pre + s:
+                                                     n_pre + s + 2]
                                .transpose(0, 1), atol=1e-4, rtol=1e-4)
 
 

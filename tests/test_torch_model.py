@@ -221,13 +221,18 @@ def test_greedy_generate_matches_jax():
 
 
 def test_unported_configs_raise():
-    """Every arch id is registered; the model paths not ported yet
-    (encoder-decoders, modality frontends) refuse at init_params. An MoE
-    FFN is ported: a dense config given one builds, and its prefill is
-    never right-padded (capacity routing depends on the call's tokens)."""
+    """Every arch id is registered, and every model path is ported: the
+    encoder-decoder and the vision frontend, which once refused here,
+    build with the JAX init's tree and never right-pad their prompts (as
+    in the reference). An MoE FFN is ported: a dense config given one
+    builds, and its prefill is never right-padded (capacity routing
+    depends on the call's tokens)."""
     for arch in ("seamless-m4t-large-v2", "internvl2-1b"):
-        with pytest.raises(NotImplementedError):
-            TM.init_params(get_smoke_config(arch), device="cpu")
+        cfg = get_smoke_config(arch)
+        own = jax.tree.structure(TM.init_params(cfg, device="cpu"))
+        assert own == jax.tree.structure(JM.init_params(
+            jax_smoke_config(arch), jax.random.PRNGKey(0)))
+        assert not TM.bucketed_prefill_supported(cfg)
     assert get_config("olmo-1b").name == "olmo-1b"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
