@@ -41,7 +41,10 @@
 // columns; at hd 80 (h2o-danube) it owns columns lane, lane + 32 and, for
 // lanes below 16, lane + 64, and a row of 160 (or 320) bytes, which no
 // 128-byte line holds whole, is swizzled within each line by the line's
-// index instead of the row's.
+// index instead of the row's. The columns-32-apart loop serves every hd,
+// but where 32 divides hd it is 3-20 % slower than the neighbouring
+// columns (an H100 80GB HBM3 at 700 W, repro_torch.profiling.decode_ab),
+// so both are kept.
 //
 // C entry point: decode_attention_launch(q, k, v, valid_len, out, B, H, KV,
 // C, D, k_sb, k_sc, v_sb, v_sc, dtype, stream): q and out (B, H, D)
