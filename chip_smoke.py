@@ -49,7 +49,15 @@ launch counts include graph replays.
              V 151,936 (reference mode and the teacher-forced checks) and
              V 65,536 (jamba);
              flash at S 256 and at S 64, the most common prefill bucket;
-             the scan at S 200 and S 64.
+             the scan at S 200 and S 64. Then the flash-attention backward
+             (no TPU counterpart) at each training phase's attention
+             shape: f32 within BWD_F32_TOL of the plain backward, bf16
+             each element within its own roundings of it (the output's
+             and P's and dS's as bf16 operands; D = dO . o read from the
+             bf16 o, as the kernel reads it),
+             rejecting the plain version with the full form's pad keys
+             unmasked (seamless) or the window's edge one key late
+             (danube); timed beside the backward of SDPA.
 4. serve   — the main path: a two-stage cascade of full-width qwen2-0.5b
              models (random bf16 weights from seeds 0 and 1) served by the
              fused ``TokenEngine`` (8 KV slots of 512 tokens, spec_k 4):
@@ -164,7 +172,36 @@ launch counts include graph replays.
              print the prefill's and each step's host and device ms, peak
              memory, the step's weight-read bound and the H100 cost
              model's step.
-13. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
+13-17. train_qwen2, train_olmo, train_danube, train_internvl,
+             train_seamless — the training path (``make_train_step``:
+             ``train_loss`` with remat, ``backward()`` through the flash
+             kernels forward and backward, AdamW with f32 moments in
+             place) at full width and depth in bf16, random weights from
+             seed 0, on one repeated ``SyntheticDataset`` batch
+             (TRAIN_SHAPES: qwen2-0.5b B 8 x 512, olmo-1b B 4 x 512,
+             h2o-danube B 1 x 4,200 past its window, internvl2 B 4 x (256
+             prefix rows + 200 tokens), seamless B 4 x 128 over 500 source
+             frames). First one f32 step cut to TRAIN_CUT layers (batch 1,
+             the same positions) on the card and on the CPU: every
+             gradient leaf within TRAIN_GRAD_TOL of the CPU's (a gradient
+             the card dropped would miss by its whole size). Then
+             TRAIN_WARM steps and TRAIN_STEPS timed ones: the loss must
+             fall; launches (zeroed just before, read just after) flash
+             forward = attention layers x steps x 2 (the recompute),
+             backward = attention layers x steps. Prints the step's wall
+             and device ms against 6 and 8 x params x tokens at the bf16
+             peak, and the peak memory (weights, gradients, m and v: 12 B
+             a parameter, 6-22 GB).
+18. train_resume — in a process of its own (CUBLAS_WORKSPACE_CONFIG set,
+             ``torch.use_deterministic_algorithms(True)``): qwen2-0.5b at
+             the train_qwen2 shape, RESUME_AT steps, a ``CheckpointManager``
+             save into a temporary directory (deleted after), RESUME_K
+             more; the checkpoint restored into a zeroed template must be
+             bit-equal to the saved state, and RESUME_K steps from it
+             bit-equal to the uninterrupted run (an op without a
+             deterministic implementation would be named and the run held
+             within RESUME_TOL instead).
+19. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
              beside the profiler windows' device ms per decode step for
              the four token models (and the time to read every weight a
              step reads: for the MoE all 64 experts, where the model
@@ -172,7 +209,7 @@ launch counts include graph replays.
              and device ms from the trace window's profiled repeat); the
              ``--workload qwen`` plan and DES through the serve CLI's own
              functions (qwen3-32b must place on one card).
-14. serve_tiny — the paper's one-shot classifier lifecycle through
+20. serve_tiny — the paper's one-shot classifier lifecycle through
              ``repro_torch.launch.serve``'s own functions: the tiny family
              (five transformers, d 16-96) trains on the card, every member
              is profiled through the ``EngineBackend`` that serves it, the
@@ -192,8 +229,8 @@ launch counts include graph replays.
              and idle share) and a real run at the reference's default
              2000 qps (numbers only) follow, and ``serve_tiny_fidelity``
              puts real p95 beside the simulator's at both loads.
-15. serve_baselines — the paper's baselines (``serving/baselines.py``)
-             over the family and profiles of phase 14 (not trained
+21. serve_baselines — the paper's baselines (``serving/baselines.py``)
+             over the family and profiles of phase 20 (not trained
              again). ``serve_baselines_grid``: the paper's Fig. 7 on the
              simulator, the fewest logical devices (1-8, binary search)
              with which CascadeServe's plan, DynBa's grid and MS+'s grid
@@ -203,14 +240,14 @@ launch counts include graph replays.
              factor, and Cocktail+'s time-averaged active devices on 8.
              Then DynBa (the most accurate model) and MS+ through
              ``build_plan`` on the threaded ``CascadeServer`` with the
-             policy's selector, at 60 and 2,000 qps as in phase 14, each
+             policy's selector, at 60 and 2,000 qps as in phase 20, each
              beside the simulator's run of the same policy and trace, and
              a ``serve_baselines`` line with CascadeServe's runs of phase
-             11. Checks: at 60 qps at least 95 % done, every request
+             20. Checks: at 60 qps at least 95 % done, every request
              served within its gear's cascade, top2gap launched once per
              executed batch in every run, and Cocktail+'s ``build_plan``
              refusing its ensemble gears.
-16. serve_tenants — the reference CLI's two-tenant example
+22. serve_tenants — the reference CLI's two-tenant example
              (``interactive:latency:0.3:600:2,batch:latency:1.0:600:1``)
              planned by ``plan_multi_tenant`` for the 2 logical devices,
              both tenants' azure-like traces superposed and served by the
@@ -258,15 +295,23 @@ from repro_torch.core.scheduling import (ContinuousBatcher,  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.top2gap import top2gap  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.profiling.flash_bwd_ab import rounding_scale  # noqa: E402
 from repro_torch.serving.token_engine import (SlotEngine,  # noqa: E402
                                               TokenEngine, TokenRequest,
                                               greedy_generate)
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.training import (AdamWConfig, SyntheticDataset,  # noqa: E402
+                                  TrainStepConfig, adamw_update,
+                                  init_opt_state, make_train_step)
+from repro_torch.training.train_step import as_batch  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -330,6 +375,22 @@ DANUBE_B, DANUBE_PROMPT, DANUBE_STEPS = 1, 4200, 8   # past its 4,096 window
 FORWARD_LOGIT_TOL = 0.25
 FORWARD_MARGIN = 0.1          # argmax held equal where forward's gap exceeds
 FORWARD_PEAK_LIMIT = 20e9     # bytes allocated at most in each such phase
+# training (kernel_flash_bwd, the train_* phases, train_resume): each
+# model's batch, positions per row (internvl2: 256 prefix + 200 text;
+# seamless: 128 decoder positions over 500 source frames)
+TRAIN_SHAPES = {ARCH: (8, 512), OLMO_ARCH: (4, 512), DANUBE_ARCH: (1, 4200),
+                INTERNVL_ARCH: (4, 456), SEAMLESS_ARCH: (4, 128)}
+TRAIN_SRC = 500
+TRAIN_WARM, TRAIN_STEPS = 2, 8  # steps before the timed ones, timed steps
+TRAIN_LR = 1e-3                 # AdamW, warmup 2, over a repeated batch
+TRAIN_CUT = 2                   # layers of the f32 gradient check
+# the depth-cut f32 step on the card against the same step on the CPU:
+# every gradient leaf within this share of its largest CPU entry (both
+# packages' f32 products in other summation orders, and the logits'
+# gradient rounded to bf16 in both, where a rounding may land a step
+# apart); a gradient the card dropped would miss by its whole size
+TRAIN_GRAD_TOL = 1e-3
+BWD_F32_TOL = 1e-4              # f32 backward kernel, relative to the max
 N_SLOTS, MAX_LEN, SPEC_K = 8, 512, 4
 N_REQ, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 16, 200
 MIN_TOKENS, EARLY_MARGIN = 4, 0.5
@@ -957,9 +1018,177 @@ def kernel_mamba(dev) -> dict:
                 at_s64=timed[64])
 
 
+def _bwd_plain(q, k, v, o, do, causal, window):
+    """The plain backward in f32 with D_i = dO_i . o_i read from the ``o``
+    given, as the kernel reads it."""
+    return ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                       causal=causal, window=window)
+
+
+def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
+                    traps=()) -> dict:
+    """The backward kernel at one training shape. f32: dq, dk, dv within
+    BWD_F32_TOL of each gradient's largest entry in the plain backward.
+    bf16 (o the f32 plain output rounded to bf16, as a forward kernel
+    hands it over): each element within the kernel's own roundings of
+    ``_bwd_plain`` on the same inputs, as ``_bf16_tol`` holds the forward:
+    its f32 result rounded once to bf16 (2^-8 of the value), P and dS
+    rounded to bf16 operands (P_ROUND_SIGMAS x 2^-8 x the root-sum-square
+    of the terms each rounding moves, ``rounding_scale``), plus
+    BWD_F32_TOL of the largest entry; the ``traps`` (``"pad"``: the full
+    form's pad keys to a whole 64-key tile left unmasked; ``"window"``:
+    the window's lower edge one key late) must fall outside that limit.
+    Timed (bf16) beside the plain backward
+    and the backward of SDPA on the same tensors (a yardstick; the port
+    never calls it) against the least time the card needs: q, k, v, o, dO
+    read and dq, dk, dv written once, or 10 hd flops per visible
+    query-key pair and head (the five score-sized products: Q.K^T again,
+    dO.V^T, dS.K, dS^T.Q and P^T.dO; about 2.5x the forward's) at the
+    bf16 peak."""
+    g = _gen(seed)
+    form = ("full" if not causal else
+            f"window {window}" if window else "causal")
+    what = f"flash_attention_bwd {name} B={b} Sq={sq} Sk={sk} H={h} " \
+           f"KV={kv} hd={d} {form}"
+
+    def make(dtype):
+        q = torch.randn(b, sq, h, d, generator=g, device=dev)
+        k = torch.randn(b, sk, kv, d, generator=g, device=dev)
+        v = torch.randn(b, sk, kv, d, generator=g, device=dev)
+        do = torch.randn(b, sq, h, d, generator=g, device=dev)
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        o = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+        return q, k, v, o.to(dtype), do
+
+    ins = make(torch.float32)
+    got = flash_attention_bwd(*ins, causal=causal, window=window)
+    want = _bwd_plain(*ins, causal, window)
+    torch.cuda.synchronize()
+    f32 = max(float((x - r).abs().max() / r.abs().max())
+              for x, r in zip(got, want))
+    check(f32 <= BWD_F32_TOL, f"f32 {what} within {BWD_F32_TOL} ({f32})")
+    del ins, got, want
+    ins = make(torch.bfloat16)
+    got = flash_attention_bwd(*ins, causal=causal, window=window)
+    want = _bwd_plain(*ins, causal, window)
+    torch.cuda.synchronize()
+    err = max(float((x.float() - r).abs().max()) for x, r in zip(got, want))
+    rel = max(float((x.float() - r).abs().max() / r.abs().max())
+              for x, r in zip(got, want))
+    tols = [(r.abs() + P_ROUND_SIGMAS * nu) * 2.0 ** -8
+            + BWD_F32_TOL * r.abs().max()
+            for r, nu in zip(want, rounding_scale(*ins, causal, window))]
+    ratio = max(float(((x.float() - r).abs() / t).max())
+                for x, r, t in zip(got, want, tols))
+    check(ratio <= 1.0, f"{what} within the bf16 rounding limit ({ratio} "
+                        f"of it)")
+    row = dict(err_over_tol=ratio, max_rel_err=rel, f32_max_rel_err=f32)
+    if traps:
+        q, k, v, o, do = ins
+        bad = {}
+        if "pad" in traps:
+            pad = torch.zeros(b, -sk % 64, kv, d, device=dev,
+                              dtype=k.dtype)
+            tq, tk, tv = _bwd_plain(q, torch.cat([k, pad], 1),
+                                    torch.cat([v, pad], 1), o, do, False, 0)
+            bad["the tile's pad keys unmasked"] = (tq, tk[:, :sk],
+                                                   tv[:, :sk])
+        if "window" in traps:
+            bad["the window's edge one key late"] = _bwd_plain(
+                q, k, v, o, do, True, window + 1)
+        row["traps_over_tol"] = {}
+        for trap, outs in bad.items():
+            r = max(float(((x.bfloat16().float() - w).abs() / t).max())
+                    for x, w, t in zip(outs, want, tols))
+            row["traps_over_tol"][trap] = r
+            check(r > 1.0, f"{what}: a kernel with {trap} fails the check "
+                           f"({r} of the limit)")
+        del bad
+    del got, want, tols
+    nbytes = 2 * (3 * b * sq * h * d + 2 * b * sk * kv * d) \
+        + 2 * (b * sq * h * d + 2 * b * sk * kv * d)
+    sets = [ins] + [make(torch.bfloat16)
+                    for _ in range(copies(nbytes) - 1)]
+    kms = device_ms([lambda t=t: flash_attention_bwd(
+        *t, causal=causal, window=window) for t in sets])
+    pms = device_ms([lambda t=t: ref.flash_attention_bwd_ref(
+        *t, causal=causal, window=window) for t in sets[:2]], reps=3,
+        per_window=2)
+    if causal:
+        i = torch.arange(sq, device=dev)
+        mask = i[None, :] <= i[:, None]
+        if window:
+            mask &= i[None, :] > i[:, None] - window
+        pairs = int(mask.sum())
+        sdpa = dict(attn_mask=mask) if window else dict(is_causal=True)
+    else:
+        pairs = sq * sk
+        sdpa = {}
+    lib = []
+    for q, k, v, _, do in sets[:2]:
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                             **sdpa)
+        lib.append((out, (qs, ks, vs), do.transpose(1, 2)))
+    lms = device_ms([lambda t=t: torch.autograd.grad(
+        t[0], t[1], t[2], retain_graph=True) for t in lib])
+    del lib, sets
+    flops = 10 * d * b * h * pairs
+    bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    return dict(shape=f"{name}: B={b} Sq={sq} Sk={sk} H={h} KV={kv} hd={d} "
+                      f"{form} bf16", max_abs_err=err, **row, ms=kms,
+                plain_ms=pms, library_ms=lms,
+                library=f"backward of F.scaled_dot_product_attention("
+                        f"{form}, enable_gqa)",
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                bound_flops=flops)
+
+
+def kernel_flash_bwd(dev) -> dict:
+    """The flash-attention backward at each training phase's attention
+    shape: qwen2-0.5b (B 8, S 512, H 14 over KV 2, hd 64, causal; the
+    row's shape), olmo-1b (B 4, S 512, H 16 = KV 16, hd 128), h2o-danube
+    (B 1, S 4,200, H 32 over KV 8, hd 80, window 4,096; the window's edge
+    trap), internvl2 (B 4, S 456, causal), seamless's encoder (full, B 4,
+    S 500, H 16 = KV 16, hd 64) and cross attention (full, Sq 128 over
+    Sk 500), both with the pad-key trap, and its decoder's self-attention
+    (causal, B 4, S 128) (``_time_flash_bwd``)."""
+    cfg = get_config(DANUBE_ARCH)
+    rows = {
+        "qwen2": _time_flash_bwd(dev, "qwen2-0.5b", 8, 512, 512, 14, 2, 64,
+                                 True, 0, seed=40),
+        "olmo": _time_flash_bwd(dev, "olmo-1b", 4, 512, 512, 16, 16, 128,
+                                True, 0, seed=41),
+        "danube": _time_flash_bwd(dev, "h2o-danube-1.8b", 1, 4200, 4200, 32,
+                                  8, 80, True, cfg.sliding_window, seed=42,
+                                  traps=("window",)),
+        "internvl": _time_flash_bwd(dev, "internvl2-1b", 4, 456, 456, 14, 2,
+                                    64, True, 0, seed=43),
+        "seamless": _time_flash_bwd(dev, "seamless encoder", 4, TRAIN_SRC,
+                                    TRAIN_SRC, 16, 16, 64, False, 0,
+                                    seed=44, traps=("pad",)),
+        "seamless_cross": _time_flash_bwd(dev, "seamless cross", 4, 128,
+                                          TRAIN_SRC, 16, 16, 64, False, 0,
+                                          seed=45, traps=("pad",)),
+        "seamless_decoder": _time_flash_bwd(dev, "seamless decoder", 4, 128,
+                                            128, 16, 16, 64, True, 0,
+                                            seed=46),
+    }
+    row = dict(name="flash_attention_bwd", **rows["qwen2"],
+               **{f"at_{k}": r for k, r in rows.items() if k != "qwen2"})
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    row["err_over_tol"] = max(r["err_over_tol"] for r in rows.values())
+    for key in ("max_rel_err", "f32_max_rel_err"):
+        row[key] = max(r[key] for r in rows.values())
+    return row
+
+
 def phase_kernels(dev) -> dict:
     out = {}
-    for fn in (kernel_top2gap, kernel_decode, kernel_flash, kernel_mamba):
+    for fn in (kernel_top2gap, kernel_decode, kernel_flash, kernel_mamba,
+               kernel_flash_bwd):
         row = fn(dev)
         emit({"phase": "kernel", **row})
         out[row["name"]] = row
@@ -1899,6 +2128,386 @@ def phase_forward_danube(dev) -> dict:
                                cfg, DANUBE_PROMPT + n)})
 
 
+# ---------------------------------------------------------------------------
+# training: five attention models at full width, and a resumed run
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """One ``SyntheticDataset`` batch (numpy) of ``s`` positions per row
+    (a vision prefix counts toward them); an encoder-decoder's source
+    frames are TRAIN_SRC rows drawn from the same seed (the dataset would
+    give it min(max_source_len, s))."""
+    batch = SyntheticDataset(cfg, b, s, seed=seed).next_batch()
+    if cfg.is_encoder_decoder:
+        batch["source_frames"] = np.random.default_rng(seed) \
+            .standard_normal((b, TRAIN_SRC, cfg.frontend.frontend_dim)) \
+            .astype(np.float32)
+    return batch
+
+
+def _attention_layers(cfg) -> int:
+    """Flash calls in one forward: every attention layer; an
+    encoder-decoder's encoder and decoder self attention and its cross
+    attention."""
+    n = sum(1 for i in range(cfg.num_layers) if cfg.layer_is_attention(i))
+    if cfg.is_encoder_decoder:
+        n = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers
+    return n
+
+
+def _depth_cut(cfg, n: int):
+    cut = cfg.scaled(num_layers=n)
+    if cfg.is_encoder_decoder:
+        cut = cut.scaled(encdec=dataclasses.replace(
+            cfg.encdec, num_encoder_layers=n))
+    return cut
+
+
+def _grad_check_f32(dev, cfg, s: int) -> dict:
+    """One f32 train step's gradients at full width, cut to TRAIN_CUT
+    layers (encoder too), batch 1 at the phase's positions, on the card
+    (flash forward and backward kernels) and on the CPU (the plain
+    versions under autograd): every leaf within TRAIN_GRAD_TOL of its
+    largest CPU entry, the loss within 1e-5. The attention projections'
+    worst reading is printed apart: a kernel output without a gradient
+    would leave wq, wk and wv with none from attention."""
+    cut = _depth_cut(cfg, TRAIN_CUT)
+    p_cpu = model_lib.init_params(cut, seed=1, dtype=torch.float32,
+                                  device="cpu")
+    batch = _train_batch(cut, 1, s, seed=3)
+    out = []
+    for p in (p_cpu, tree_lib.tree_map(lambda t: t.detach().to(dev),
+                                       p_cpu)):
+        pairs, _ = tree_lib.flatten_with_path(p)
+        for _, t in pairs:
+            t.requires_grad_(True)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = model_lib.train_loss(p, cut, batch, remat=True)
+        loss.backward()
+        if p is not p_cpu:
+            torch.cuda.synchronize()
+        out.append((float(loss.detach()), [(path, t.grad.cpu())
+                                            for path, t in pairs],
+                    K.launch_counts(), time.perf_counter() - t0))
+        del pairs, loss
+    del p_cpu
+    worst, attn = 0.0, 0.0
+    for (path, g), (_, r) in zip(out[1][1], out[0][1]):
+        rel = float((g - r).abs().max() / max(float(r.abs().max()), 1e-30))
+        worst = max(worst, rel)
+        if path[-1] in ("wq", "wk", "wv"):
+            attn = max(attn, rel)
+    n_attn = _attention_layers(cut)
+    row = {"layers": TRAIN_CUT, "positions": s, "loss_cpu": out[0][0],
+           "loss_card": out[1][0], "worst_grad_rel_err": worst,
+           "attn_proj_grad_rel_err": attn, "tol": TRAIN_GRAD_TOL,
+           "launches": out[1][2], "cpu_s": out[0][3], "card_s": out[1][3]}
+    check(abs(out[1][0] - out[0][0]) <= 1e-5 * abs(out[0][0]),
+          f"{cfg.name} f32 depth-cut loss on the card {out[1][0]} == the "
+          f"CPU's {out[0][0]}")
+    check(worst <= TRAIN_GRAD_TOL,
+          f"{cfg.name} f32 depth-cut gradients on the card within "
+          f"{TRAIN_GRAD_TOL} of the CPU's ({worst})")
+    check(out[1][2]["flash_attention"] == 2 * n_attn
+          and out[1][2]["flash_attention_bwd"] == n_attn,
+          f"{cfg.name} f32 depth-cut step ran the flash kernels forward, "
+          f"recomputed and backward ({out[1][2]})")
+    return row
+
+
+def _train_phase(dev, phase: str, arch: str) -> dict:
+    """One model trained at full width and depth in bf16 through the
+    port's train step (``make_train_step``: ``train_loss`` with remat,
+    ``backward()``, AdamW with f32 moments in place; random weights from
+    seed 0) on one repeated ``SyntheticDataset`` batch at TRAIN_SHAPES:
+    TRAIN_WARM steps, then TRAIN_STEPS timed ones (host wall around a
+    synchronised step, and CUDA events), after ``_grad_check_f32``. The
+    loss must fall and stay finite; launch counters, zeroed just before
+    the timed steps and read just after, must be flash forward =
+    attention layers x steps x 2 (the remat recompute) and backward =
+    attention layers x steps, nothing else. Prints the step's median wall
+    and device ms against 6 x params x tokens (8 x with remat) at the
+    bf16 peak (an encoder's params count over the source positions, the
+    rest over the decoder's), one profiled step's device time by kind,
+    one more step's loss-and-backward and AdamW halves between CUDA
+    events, and the peak memory. Returns the launch counts."""
+    cfg = get_config(arch)
+    b, s = TRAIN_SHAPES[arch]
+    gcheck = _grad_check_f32(dev, cfg, s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    enc = sum(t.numel() for key in ("encoder", "frontend_proj")
+              if cfg.is_encoder_decoder and key in params
+              for t in tree_lib.leaves(params[key]))
+    n_params = sum(t.numel() for t in tree_lib.leaves(params))
+    positions = b * s
+    src = b * TRAIN_SRC if cfg.is_encoder_decoder else 0
+    pt = (n_params - enc) * positions + enc * src
+    opt = init_opt_state(params)
+    opt_cfg = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                          decay_steps=100)
+    step = make_train_step(cfg, opt_cfg, TrainStepConfig(remat=True))
+    batch = as_batch(_train_batch(cfg, b, s, seed=0), dev)
+    losses = []
+    for _ in range(TRAIN_WARM):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    wall, event = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        event.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = K.launch_counts()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof, 1)
+    busy = sum(k[0] for k in kernels)
+    by_kind = {"flash_bwd": 0.0, "flash_fwd": 0.0, "gemm": 0.0,
+               "other": 0.0}
+    for ms, _, name in kernels:
+        kind = ("flash_bwd" if "flash_bwd" in name else
+                "flash_fwd" if "flash" in name else
+                "gemm" if re.search(r"gemm|xmma|nvjet|cutlass", name)
+                else "other")
+        by_kind[kind] += ms
+    del prof
+    # the step's two halves on their own, between CUDA events: the loss and
+    # its backward pass, then the AdamW update
+    leaves = tree_lib.leaves(params)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    marks[0].record()
+    loss, _ = model_lib.train_loss(params, cfg, batch, remat=True)
+    loss.backward()
+    marks[1].record()
+    adamw_update(params, [p.grad for p in leaves], opt, opt_cfg)
+    marks[2].record()
+    torch.cuda.synchronize()
+    for p in leaves:
+        p.grad = None
+    halves = {"loss_and_backward_event_ms": marks[0].elapsed_time(marks[1]),
+              "adamw_event_ms": marks[1].elapsed_time(marks[2])}
+    del loss, leaves
+    n_attn = _attention_layers(cfg)
+    expect = {"flash_attention": n_attn * TRAIN_STEPS * 2,
+              "flash_attention_bwd": n_attn * TRAIN_STEPS,
+              "decode_attention": 0, "top2gap": 0, "mamba_scan": 0}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(wall)
+    row = {"phase": phase, "arch": cfg.name, "batch": b, "positions": s,
+           "source_frames": TRAIN_SRC if cfg.is_encoder_decoder else 0,
+           "params": n_params, "encoder_params": enc,
+           "param_state_bytes": 12 * n_params,
+           "grad_check_f32": gcheck, "losses": losses,
+           "grad_norm_last": float(m["grad_norm"]),
+           "step_ms": wall, "step_event_ms": event,
+           "step_ms_median": step_ms,
+           "step_event_ms_median": statistics.median(event),
+           "bound_6pt_ms": 6 * pt / BF16_FLOP_PER_S * 1e3,
+           "bound_8pt_remat_ms": 8 * pt / BF16_FLOP_PER_S * 1e3,
+           "tokens_per_s": (positions + src) / step_ms * 1e3,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "expected_launches": expect,
+           "profiled_step_device_busy_ms": busy, **halves,
+           "profiled_step_kernels": sum(k[1] for k in kernels),
+           "device_busy_ms_by_kind": by_kind,
+           "idle_share": 1.0 - busy / statistics.median(event),
+           "top_kernels": [{"ms": t, "launches": c, "kernel": name[:90]}
+                           for t, c, name in kernels[:8]]}
+    row["mfu_6pt"] = row["bound_6pt_ms"] / row["step_event_ms_median"]
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"{phase} losses finite")
+    check(losses[-1] < losses[0], f"{phase} loss falls ({losses[0]} -> "
+                                  f"{losses[-1]})")
+    for name, want in expect.items():
+        check(launches[name] == want,
+              f"{phase} {name} launches {launches[name]} == {want}")
+    del params, opt, batch, step, m
+    return launches
+
+
+def phase_train_qwen2(dev) -> dict:
+    """qwen2-0.5b (24 layers, d 896, 14 heads over 2 KV at hd 64, tied
+    head, vocab 151,936; 0.49 B parameters, about 6 GB of weights,
+    gradients and moments), B 8 x 512 positions."""
+    return _train_phase(dev, "train_qwen2", ARCH)
+
+
+def phase_train_olmo(dev) -> dict:
+    """olmo-1b (16 layers, d 2048, 16 = 16 KV heads at hd 128, the
+    non-parametric LayerNorm; 1.18 B parameters, about 14 GB), B 4 x
+    512."""
+    return _train_phase(dev, "train_olmo", OLMO_ARCH)
+
+
+def phase_train_danube(dev) -> dict:
+    """h2o-danube-1.8b (24 layers, d 2560, 32 heads over 8 KV at hd 80,
+    window 4,096; 1.83 B parameters, about 22 GB), B 1 x 4,200 positions,
+    past the window."""
+    return _train_phase(dev, "train_danube", DANUBE_ARCH)
+
+
+def phase_train_internvl(dev) -> dict:
+    """internvl2-1b (24 layers, d 896, 14 heads over 2 KV at hd 64;
+    0.49 B parameters, about 6 GB), B 4 x (256 prefix embeddings + 200
+    text tokens): the prefix positions carry no label."""
+    return _train_phase(dev, "train_internvl", INTERNVL_ARCH)
+
+
+def phase_train_seamless(dev) -> dict:
+    """seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1024,
+    16 = 16 KV heads at hd 64, vocab 256,206; 1.77 B parameters, about
+    21 GB), B 4 x 128 decoder positions over 500 source frames: the
+    encoder's full flash form, the decoder's causal one and the cross
+    attention's full form over 500 keys, each forward and backward."""
+    return _train_phase(dev, "train_seamless", SEAMLESS_ARCH)
+
+
+RESUME_AT, RESUME_K = 2, 2      # steps before the checkpoint, and after
+# Where an op of the path is named nondeterministic, the resumed run is held
+# within RESUME_TOL of the uninterrupted one, every leaf, instead of bit for
+# bit: a gradient that differs moves an element's AdamW step by at most
+# 2 x the learning rate (the bias-corrected step m/sqrt(v) lies within
+# [-1, 1] where 1 - b1 <= sqrt(1 - b2), as at 0.9 and 0.95), and each step
+# rounds a bf16 param once more (2^-7 at the norms' 1.0, the largest
+# params); the moments move far less than the params.
+RESUME_TOL = RESUME_K * (2 * TRAIN_LR + 2.0 ** -7)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def _train_resume_child() -> dict:
+    """Save, restore and resume qwen2-0.5b at full width (the train_qwen2
+    shape, RESUME_AT + RESUME_K distinct batches) under
+    ``torch.use_deterministic_algorithms(True)``: RESUME_AT steps, a
+    ``CheckpointManager`` save into a temporary directory (deleted after),
+    RESUME_K more steps; then the checkpoint restored into a zeroed
+    template and the same RESUME_K steps from it. Runs in a process of its
+    own, started with CUBLAS_WORKSPACE_CONFIG set, as deterministic cuBLAS
+    needs. Where an op of the path has no deterministic implementation it
+    is named, the mode is relaxed to a warning, and the two runs are held
+    within RESUME_TOL instead."""
+    import tempfile
+    dev = resolve_device("cuda")
+    cfg = get_config(ARCH)
+    b, s = TRAIN_SHAPES[ARCH]
+    ds = SyntheticDataset(cfg, b, s, seed=5)
+    batches = [as_batch(ds.next_batch(), dev)
+               for _ in range(RESUME_AT + RESUME_K)]
+    step = make_train_step(cfg, AdamWConfig(learning_rate=TRAIN_LR,
+                                            warmup_steps=2, decay_steps=100),
+                           TrainStepConfig(remat=True))
+    nondeterministic = None
+    torch.use_deterministic_algorithms(True)
+
+    def run(params, opt, lo, hi):
+        nonlocal nondeterministic
+        for i in range(lo, hi):
+            try:
+                params, opt, _ = step(params, opt, batches[i])
+            except RuntimeError as e:
+                if "deterministic" not in str(e) or nondeterministic:
+                    raise
+                nondeterministic = str(e).splitlines()[0][:300]
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                params, opt, _ = step(params, opt, batches[i])
+        return params, opt
+
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    params, opt = run(params, opt, 0, RESUME_AT)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(RESUME_AT, (params, opt), extra={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
+        saved = tree_lib.tree_map(lambda t: t.detach().clone(),
+                                  (params, opt))
+        straight = run(params, opt, RESUME_AT, RESUME_AT + RESUME_K)
+        template = tree_lib.tree_map(torch.zeros_like, saved)
+        t0 = time.perf_counter()
+        restored, meta = mgr.restore(template)
+        restore_s = time.perf_counter() - t0
+        del template
+    restored_equal = meta["step"] == RESUME_AT and all(
+        _same_bits(a.detach(), r) for a, r in zip(
+            tree_lib.leaves(saved), tree_lib.leaves(restored)))
+    del saved
+    resumed = run(*restored, RESUME_AT, RESUME_AT + RESUME_K)
+    pairs = [(a.detach(), r.detach()) for a, r in zip(
+        tree_lib.leaves(straight), tree_lib.leaves(resumed))]
+    resumed_equal = all(_same_bits(a, r) for a, r in pairs)
+    max_diff = max(float((a.float() - r.float()).abs().max())
+                   for a, r in pairs)
+    return {"phase": "train_resume", "arch": cfg.name, "batch": b,
+            "positions": s, "steps_before": RESUME_AT,
+            "steps_after": RESUME_K, "checkpoint_bytes": ckpt_bytes,
+            "save_s": save_s, "restore_s": restore_s,
+            "restored_bit_equal": restored_equal,
+            "resumed_bit_equal": resumed_equal,
+            "resumed_max_abs_diff": max_diff,
+            "resume_tol": RESUME_TOL,
+            "leaves": len(pairs),
+            "nondeterministic_op": nondeterministic,
+            "deterministic_algorithms":
+                torch.are_deterministic_algorithms_enabled()}
+
+
+def phase_train_resume() -> None:
+    """``_train_resume_child`` in a process of its own (this script with
+    ``--train-resume-child``), which must print its row last and exit 0:
+    the restored state bit-equal to the saved one, and the resumed run
+    bit-equal to the uninterrupted one (or, where an op was named
+    nondeterministic, every leaf within RESUME_TOL of it: no difference is
+    allowed without a name)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--train-resume-child"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"train_resume child exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    row = json.loads(lines[-1])
+    emit(row)
+    check(row["restored_bit_equal"], "the restored state is bit-equal to "
+                                     "the saved one")
+    if row["nondeterministic_op"] is None:
+        check(row["resumed_bit_equal"], f"the resumed run is bit-equal to "
+              f"the uninterrupted one (max diff "
+              f"{row['resumed_max_abs_diff']})")
+    else:
+        check(row["resumed_max_abs_diff"] <= RESUME_TOL,
+              f"the resumed run is within {RESUME_TOL} of the uninterrupted "
+              f"one, as {row['nondeterministic_op']!r} is nondeterministic "
+              f"(max diff {row['resumed_max_abs_diff']})")
+
+
 def _depth_cut_f32(params, n_layers: int):
     """The first ``n_layers`` repetitions of a dense model's params in
     float32, built leaf by leaf while the full-depth bf16 leaves are
@@ -2471,7 +3080,7 @@ def phase_cost_model(traces: dict, qwen3: dict, param_bytes: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the one-shot classifier cascade (train, profile, plan, serve)
+# phase 20: the one-shot classifier cascade (train, profile, plan, serve)
 # ---------------------------------------------------------------------------
 
 class _Recording:
@@ -2741,7 +3350,7 @@ def phase_serve_tiny(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the paper's baselines (Fig. 7 on the DES, real runs on the card)
+# phase 21: the paper's baselines (Fig. 7 on the DES, real runs on the card)
 # ---------------------------------------------------------------------------
 
 def _min_devices(check) -> "int | None":
@@ -2934,7 +3543,7 @@ def phase_serve_baselines(tiny: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: two tenants on one shared fleet (MultiTenantServer)
+# phase 22: two tenants on one shared fleet (MultiTenantServer)
 # ---------------------------------------------------------------------------
 
 def phase_serve_tenants(tiny: dict) -> dict:
@@ -3066,10 +3675,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, phase in (("forward_seamless", phase_forward_seamless),
                         ("forward_internvl", phase_forward_internvl),
-                        ("forward_danube", phase_forward_danube)):
+                        ("forward_danube", phase_forward_danube),
+                        ("train_qwen2", phase_train_qwen2),
+                        ("train_olmo", phase_train_olmo),
+                        ("train_danube", phase_train_danube),
+                        ("train_internvl", phase_train_internvl),
+                        ("train_seamless", phase_train_seamless)):
         paths[name] = phase(dev)
         gc.collect()
         torch.cuda.empty_cache()
+    phase_train_resume()
     phase_cost_model({s["trace"]["arch"]: s["trace"]
                       for s in summaries.values()}, summaries["serve_qwen3"],
                      {s["trace"]["arch"]: s["by_stage"][s["trace"]["stage"]]
@@ -3088,6 +3703,8 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:93"),
         "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan.py:72"),
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                                "flash_attention_bwd.cu", None),
     }
     rows = []
     for name, (src, replaces) in sources.items():
@@ -3103,11 +3720,20 @@ def main() -> int:
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
                      **{key: t[key] for key in ("bound_bytes", "bound_flops",
-                                                "err_over_tol") if key in t},
+                                                "err_over_tol",
+                                                "max_rel_err",
+                                                "f32_max_rel_err")
+                        if key in t},
+                     **({"note": "no TPU kernel: stands in for XLA's "
+                                 "derivative of the jnp sdpa / sdpa_gqa "
+                                 "(src/repro/models/attention.py:76-89)"}
+                        if replaces is None else {}),
                      **{at: {key: t[at][key] for key in (
                          "shape", "max_abs_err", "err_over_tol",
-                         "traps_over_tol", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms") if key in t[at]}
+                         "traps_over_tol", "max_rel_err",
+                         "f32_max_rel_err", "ms",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms")
+                         if key in t[at]}
                         for at in ("at_qwen3", "at_olmo", "at_moe",
                                    "at_jamba", "at_seamless",
                                    "at_seamless_cross", "at_internvl",
@@ -3125,4 +3751,7 @@ if __name__ == "__main__":
     if not __import__("torch").cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:] == ["--train-resume-child"]:
+        print(json.dumps(_train_resume_child()), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy", "to_numpy",
-           "tensor_leaves", "tiny_params_from_numpy"]
+__all__ = ["to_tensor", "params_from_numpy", "cache_from_numpy",
+           "opt_state_from_numpy", "to_numpy", "tensor_leaves",
+           "tiny_params_from_numpy"]
 
 
 def to_tensor(a, device="cuda", dtype: Optional[torch.dtype] = None
@@ -63,6 +64,17 @@ def params_from_numpy(tree: Any, device="cuda",
 # the cache pytree ({"blocks": [{"k", "v"} or {"conv", "ssm"}]}) converts
 # leaf by leaf exactly like the params
 cache_from_numpy = params_from_numpy
+
+
+def opt_state_from_numpy(tree: Any, device="cuda") -> Any:
+    """The AdamW state of ``repro/training/optimizer.py`` (``{"m", "v"}``
+    in the params' structure, float32, and the int32 ``step``) as tensors
+    on ``device`` (the card unless the caller asks for the CPU; raises
+    without one), every leaf's dtype kept."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(tree["m"], device),
+            "v": params_from_numpy(tree["v"], device),
+            "step": to_tensor(tree["step"], device)}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -4,6 +4,8 @@ PyTorch versions (port of ``repro/kernels``).
 top2gap          — the paper's Eq. 5 certainty gap and the greedy argmax
 decode_attention — one-token GQA attention over the model's KV cache
 flash_attention  — causal / windowed prefill attention with GQA
+flash_attention_bwd — its backward (dq, dk, dv), behind the forward's
+                   autograd Function; no TPU counterpart
 mamba_scan       — the Mamba-1 selective scan of an SSM prefill
 
 Each wrapper runs its plain version (``ref``) for a CPU tensor and its
@@ -29,6 +31,7 @@ WRAPPERS = {
     "top2gap": _top2gap.top2gap,
     "decode_attention": _decode.decode_attention,
     "flash_attention": _flash.flash_attention,
+    "flash_attention_bwd": _flash.flash_attention_bwd,
     "mamba_scan": _mamba.mamba_scan,
 }
 

@@ -8,6 +8,9 @@ only noted in the recording (a capture launches nothing), and
 ``replayed(recording)`` adds those launches to the counts at every replay.
 The server's consumer threads launch concurrently, so every update takes
 one lock; a recording belongs to the thread that captures.
+
+A wrapper whose kernel has no backward calls ``forward_only`` before it
+launches: a launch returns an output without a ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import contextlib
 import threading
 from typing import Callable, Dict, Iterator
 
-__all__ = ["launched", "recording", "replayed", "reset"]
+import torch
+
+__all__ = ["forward_only", "launched", "recording", "replayed", "reset"]
 
 _lock = threading.Lock()
 _local = threading.local()
@@ -56,3 +61,18 @@ def reset(wrappers) -> None:
     with _lock:
         for wrapper in wrappers:
             wrapper.launches = 0
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on
+    inputs that autograd is tracking: its output would carry no
+    ``grad_fn`` and the gradient would be lost without a word. Training
+    through it on the card waits for its backward (ROADMAP, queue 1,
+    item 2)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; call it under torch.no_grad(), or train on "
+            f"the CPU, where the plain version differentiates (a backward "
+            f"kernel is ROADMAP queue 1, item 2)")

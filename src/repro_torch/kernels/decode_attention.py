@@ -6,8 +6,10 @@ Unlike the Pallas kernel, which takes ``(B, HKV, C, D)``, the wrapper
 reads the model's ``(B, C, KV, hd)`` per-layer cache view in place, by
 strides, so a decode step makes no transpose. On a CPU tensor it runs the
 plain version (``ref.decode_attention_ref``); on a CUDA tensor it launches
-the kernel or raises. One launch splits each row's positions over a
-cluster of 8 blocks per KV head and merges their partials on chip.
+the kernel or raises (also where an input requires grad: the kernel has
+no backward, ``counts.forward_only``). One launch splits each row's
+positions over a cluster of 8 blocks per KV head and merges their
+partials on chip.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    counts.forward_only("decode_attention", q, k, v)
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("decode_attention: q must be (B, H, hd) and k, v "
                          "(B, C, KV, hd)")

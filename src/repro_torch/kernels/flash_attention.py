@@ -11,22 +11,35 @@ tensor it runs the plain version (``ref.flash_attention_ref``); on a CUDA
 tensor it launches the kernel or raises. bf16 runs on the tensor cores
 (wgmma, TMA-fed tiles); f32, which only parity runs use, runs on the CUDA
 cores so that it keeps f32 accuracy.
+
+Gradients: where grad mode is on and q, k or v requires grad, a CUDA call
+goes through ``_FlashAttention`` (a ``torch.autograd.Function``): its
+forward is the same kernel launch, and its backward launches
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), counted on its
+own wrapper. Every other CUDA call launches the forward alone, as serving
+always has. On the CPU autograd runs through the plain version. Under
+activation recomputation a block's forward runs again in the backward
+pass, and that launch is counted like any other.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build, counts, ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 80, 128)  # head widths the kernel is instantiated for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
          + (ctypes.c_longlong,) * 8 + (ctypes.c_int,) * 3
          + (ctypes.c_void_p,))
+_BWD_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+             + (ctypes.c_longlong,) * 10 + (ctypes.c_int,) * 3
+             + (ctypes.c_void_p,))
 
 
 def _dense_heads(t: torch.Tensor) -> bool:
@@ -40,11 +53,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
     dtype. Query i sees key j iff j <= i and (window == 0 or j > i -
-    window), which needs Sk == Sq; ``causal=False`` sees every key."""
+    window), which needs Sk == Sq; ``causal=False`` sees every key.
+    Differentiable on both devices (see the module docstring)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int) -> None:
+    """Raise on what the CUDA kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q must be (B, Sq, H, hd) and k, "
                          "v (B, Sk, KV, hd)")
@@ -71,6 +94,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(_dense_heads(t) for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be dense over "
                          "(heads, hd) and 16-byte aligned")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int) -> torch.Tensor:
+    """One launch of the forward kernel on checked CUDA tensors."""
+    b, s, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     fn = build.function("flash_attention", "flash_attention_launch", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
@@ -84,3 +114,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.form = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.form)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, dout: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention(q, k, v, causal, window)`` = o
+    against dout (B, Sq, H, hd): (dq, dk, dv) in q's, k's and v's shapes
+    and dtype. On a CPU tensor it runs the plain version
+    (``ref.flash_attention_bwd_ref``); on a CUDA tensor it launches
+    ``csrc/flash_attention_bwd.cu`` (two kernels, counted as one launch)
+    or raises. Both read D_i = dO_i . o_i from the ``o`` given."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                           window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v, causal, window)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("flash_attention_bwd: o and dout must have q's "
+                         "shape")
+    if any(t.dtype != q.dtype or t.device != q.device for t in (o, dout)):
+        raise TypeError("flash_attention_bwd: o and dout must share q's "
+                        "dtype and device")
+    # autograd may hand over a gradient in any layout
+    o, dout = (t if _dense_heads(t) else t.contiguous() for t in (o, dout))
+    b, s, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd_launch",
+                        _BWD_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), b, s, sk, h, kv, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), o.stride(0), o.stride(1), dout.stride(0),
+            dout.stride(1), int(causal), int(window), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash_attention_bwd")
+    counts.launched(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -4,7 +4,9 @@ CUDA kernel in ``csrc/mamba_scan.cu``).
 The wrapper takes the Pallas kernel's operands plus an optional initial
 state and returns the output and the last state, which the model's prefill
 keeps as its SSM cache. On a CPU tensor it runs the plain version
-(``ref.mamba_scan_ref``); on a CUDA tensor it launches the kernel or raises.
+(``ref.mamba_scan_ref``); on a CUDA tensor it launches the kernel or raises
+(also where an input requires grad: the kernel has no backward,
+``counts.forward_only``).
 The decode step is a single recurrence and needs no kernel
 (``models/mamba.py`` ``mamba_decode``).
 """
@@ -48,6 +50,7 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         return ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
+    counts.forward_only("mamba_scan", dt, a, b_mat, c_mat, d_vec, x, h0)
     if x.dim() != 3 or a.dim() != 2:
         raise ValueError("mamba_scan: x must be (B, S, Di) and a (Di, N)")
     bsz, s, d_inner = x.shape

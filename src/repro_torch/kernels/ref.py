@@ -18,7 +18,13 @@ upcasts, in the model's layouts:
                              head h reads KV head h // G);
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
-                             the output and the last state.
+                             the output and the last state;
+* ``flash_attention_bwd_ref`` — the gradient of ``flash_attention_ref``
+                             (dq, dk, dv) by autograd through it in f32,
+                             optionally with D = dO . o read from the o
+                             given, as the kernel reads it; it has no TPU
+                             counterpart (the JAX package differentiates
+                             its jnp attention).
 
 The CPU tests hold them against the JAX package; ``chip_smoke.py`` holds
 each kernel against them on the card. The wrappers call them only for
@@ -34,7 +40,7 @@ import torch
 NEG_INF = -1e30
 
 __all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
-           "mamba_scan_ref"]
+           "flash_attention_bwd_ref", "mamba_scan_ref"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,11 +89,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. Query i sees key j iff j <= i and (window == 0 or j > i -
     window), which needs Sk == Sq; ``causal=False`` sees every key."""
     b, s, h, d = q.shape
-    kv = k.shape[2]
     if causal and k.shape[1] != s:
         raise ValueError(f"flash_attention_ref: the causal and windowed "
                          f"forms need as many keys as queries (Sq {s}, Sk "
                          f"{k.shape[1]})")
+    probs = _flash_probs(q, k, causal, window)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                 window: int) -> torch.Tensor:
+    """The softmax weights (B, KV, G, Sq, Sk) f32 of query head
+    ``kv * G + g`` over the keys it sees."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
     g = h // kv
     qf = q.float().reshape(b, s, kv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(d)
@@ -98,9 +114,39 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window > 0:
             keep &= kj > qi - window
         scores = scores.masked_fill(~keep, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True,
+                            window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The plain backward: (dq, dk, dv) in q's, k's and v's dtypes, by
+    autograd through ``flash_attention_ref`` on f32 upcasts of q, k, v,
+    against ``dout`` upcast. D_i = dO_i . o_i is read from the ``o``
+    given, as the kernel reads it (a bf16 ``o`` is the f32 output
+    rounded): autograd reads it from the exact f32 output, so dS_ij =
+    P_ij (dP_ij - D_i) moves by the exact linear change -P_ij (D_i(o) -
+    D_i), and dq and dk with it."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    moved = (dout.float() * (o.float() - out.detach())).sum(-1)
+    pw = _flash_probs(qf.detach(), kf.detach(), causal, window)
+    pw.mul_(moved.reshape(b, s, kv, g).permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / math.sqrt(d)
+    dq = dq - scale * torch.einsum("bkgqs,bskd->bqkgd", pw, kf.detach()) \
+        .reshape(b, s, h, d)
+    dk = dk - scale * torch.einsum("bkgqs,bqkgd->bskd", pw,
+                                   qf.detach().reshape(b, s, kv, g, d))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mamba_scan_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,

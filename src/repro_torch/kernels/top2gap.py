@@ -5,7 +5,9 @@
 ``argmax_gap`` is the decode loop's per-step reduction (paper Eq. 5 plus
 the greedy token): each step hands the host (B,) tokens and gaps instead of
 (B, V) logits. On a CPU tensor the wrapper runs the plain version
-(``ref.top2gap_ref``); on a CUDA tensor it launches the kernel or raises.
+(``ref.top2gap_ref``); on a CUDA tensor it launches the kernel or raises
+(also where an input requires grad: the kernel has no backward,
+``counts.forward_only``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ def top2gap(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return ref.top2gap_ref(scores)
     if scores.device.type != "cuda":
         raise ValueError(f"top2gap: unsupported device {scores.device}")
+    counts.forward_only("top2gap", scores)
     if scores.dim() != 2:
         raise ValueError(f"top2gap: scores must be (B, V), got "
                          f"{tuple(scores.shape)}")

@@ -1,5 +1,5 @@
 """Shared model building blocks: norms, RoPE, FFN, embedding and LM head
-(port of ``repro/models/common.py:83-193``).
+and the token cross-entropy (port of ``repro/models/common.py:83-193``).
 
 Plain functions over a parameter dict that keeps the JAX pytree's layout
 and dtypes: norm scales stay float32 under bfloat16 weights, every norm and
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 Params = Dict[str, Any]
 
 __all__ = ["Params", "apply_norm", "rope_frequencies", "apply_rope",
-           "apply_ffn", "embed_tokens", "lm_logits"]
+           "apply_ffn", "embed_tokens", "lm_logits", "cross_entropy_loss"]
 
 
 def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
@@ -73,3 +73,19 @@ def lm_logits(p: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:
     """Final logits in float32: the product runs in the activation dtype."""
     w = p["embedding"].T if tie else p["lm_head"]
     return (x @ w.to(x.dtype)).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (the single-device branch of
+    the reference): logsumexp minus the gold logit, masked where the label
+    is ``ignore_id``, over max(count, 1). logits (B, S, V), labels (B, S).
+    The reference's one-hot branch for a vocab-sharded mesh waits for the
+    distributed port."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

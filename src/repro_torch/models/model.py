@@ -22,7 +22,10 @@ them, one rep at a time.
 Entry points:
   init_params        — random params from a ``torch.Generator`` (scale 0.02)
   encode             — the encoder over source frames (enc-dec)
-  forward            — full-sequence logits
+  forward            — full-sequence logits (optionally recomputing each
+                       block's activations in the backward pass)
+  train_loss         — the training objective: bf16-rounded logits' token
+                       cross-entropy plus the MoE aux loss
   prefill            — prompt -> last-position logits + cache
   decode_step        — one token against the cache (updated in place)
   decode_fused_steps — k greedy steps with the argmax/top-2-gap reduction
@@ -38,15 +41,26 @@ carries ``source_frames``) and the vision prefix (``batch`` carries
 ``prefix_embeddings``; positions and ``cache_len`` count the prefix).
 ``forward`` returns the MoE layers' summed load-balance loss; prefill and
 decode discard it, as the reference does, and do not compute it.
+
+Activation recomputation (``remat``): where JAX wraps the scanned block in
+``jax.checkpoint``, the port wraps each block of ``_run_blocks`` in
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``; the ``"dots"``
+policy keeps the outputs of the plain matrix products (``aten.mm`` /
+``addmm``, as ``dots_with_no_batch_dims_saveable`` keeps dots without
+batch dimensions) and recomputes the rest. Rep-stacked params are split
+into per-rep views with one ``unbind`` per leaf, whose backward stacks each
+leaf's gradient once instead of writing a zero-filled stack per rep.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -57,10 +71,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (Params, apply_ffn, apply_norm,
-                                       embed_tokens, lm_logits)
+                                       cross_entropy_loss, embed_tokens,
+                                       lm_logits)
 
 __all__ = ["LayerSpec", "block_pattern", "num_reps", "init_params",
-           "encode", "forward", "prefill", "decode_step", "widen_ssm_cache",
+           "encode", "forward", "train_loss", "prefill", "decode_step",
+           "widen_ssm_cache",
            "decode_fused_steps", "bucketed_prefill_supported",
            "prefill_bucketed", "init_cache"]
 
@@ -207,11 +223,24 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
+AUX_LOSS_COEF = 0.01
+
+
 def _rep(tree: Any, r: int) -> Any:
     """The rep-``r`` slice of a rep-stacked pytree (views)."""
     if isinstance(tree, dict):
         return {k: _rep(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _unstack(tree: Any, reps: int) -> List[Any]:
+    """Every rep's slice of a rep-stacked pytree (views, as ``_rep``'s),
+    from one ``unbind`` per leaf: its backward stacks the reps' gradients
+    once."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(reps)]
+    return list(tree.unbind(0))
 
 
 def _device(params: Params) -> torch.device:
@@ -287,7 +316,8 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 cross_kv: Optional[List[Params]] = None, cache_index=None,
                 cache_len: int = 0, sink: Optional[Callable] = None,
                 is_causal: bool = True,
-                pattern: Optional[Tuple[LayerSpec, ...]] = None
+                pattern: Optional[Tuple[LayerSpec, ...]] = None,
+                remat: bool = False, remat_policy: str = "full"
                 ) -> Tuple[torch.Tensor, Optional[List[Params]],
                            Optional[torch.Tensor]]:
     """Loop the block pattern (``pattern``, by default the config's) over
@@ -298,11 +328,17 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
     ``cross_kv`` (enc-dec) is per position the rep-stacked ``{"ck",
     "cv"}``. The third result is, in ``"full"`` mode, the MoE layers' aux
     loss summed in layer order (f32; zero without MoE layers), else
-    ``None``."""
+    ``None``. With ``remat`` (``"full"`` mode) each block runs under
+    ``torch.utils.checkpoint`` (policy ``remat_policy``: ``"full"`` or
+    ``"dots"``)."""
     pattern = pattern or block_pattern(cfg)
     reps = next(_stacked(blocks[0])).shape[0]
     filled: List[Dict[str, List[torch.Tensor]]] = [{} for _ in pattern]
     aux = torch.zeros((), device=x.device) if mode == "full" else None
+    per_rep = [_unstack(blk, reps) for blk in blocks]
+    apply = _apply_block
+    if remat and mode == "full":
+        apply = functools.partial(_checkpointed, remat_policy)
     for r in range(reps):
         for pos, spec in enumerate(pattern):
             c_in = ckv = None
@@ -310,9 +346,9 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 c_in = {n: a[r] for n, a in caches[pos].items()}
             if spec.cross:
                 ckv = {n: a[r] for n, a in cross_kv[pos].items()}
-            x, c_out, a = _apply_block(spec, _rep(blocks[pos], r), cfg, x,
-                                       positions, mode, c_in, ckv,
-                                       cache_index, cache_len, is_causal)
+            x, c_out, a = apply(spec, per_rep[pos][r], cfg, x, positions,
+                                mode, c_in, ckv, cache_index, cache_len,
+                                is_causal)
             if a is not None:
                 aux = aux + a
             if mode == "prefill" and sink is not None:
@@ -324,6 +360,32 @@ def _run_blocks(blocks: List[Params], cfg: ModelConfig, x: torch.Tensor,
         return x, [{n: torch.stack(v) for n, v in f.items()}
                    for f in filled], aux
     return x, caches, aux
+
+
+# the plain (unbatched) matrix products "dots" keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the plain matrix products' outputs, recompute the rest."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(policy: str, *args):
+    """``_apply_block(*args)`` with its activations recomputed in the
+    backward pass (``policy`` "full": all of them; "dots": all but the
+    plain matrix products' outputs)."""
+    if policy == "dots":
+        context = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return ckpt.checkpoint(_apply_block, *args, use_reentrant=False,
+                               context_fn=context)
+    if policy != "full":
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                         f"{policy!r}")
+    return ckpt.checkpoint(_apply_block, *args, use_reentrant=False)
 
 
 def _stacked(tree):
@@ -351,11 +413,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
     return x, positions
 
 
-def encode(params: Params, cfg: ModelConfig, source) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, source,
+           remat: bool = False) -> torch.Tensor:
     """The encoder (enc-dec archs) over source frames (B, S_src,
     frontend_dim) — the stub frontend's precomputed frames, projected by
     ``frontend_proj`` where their width is the frontend's — through full
-    (non-causal) self-attention blocks and the encoder's final norm.
+    (non-causal) self-attention blocks and the encoder's final norm,
+    each block recomputed in the backward pass under ``remat``.
     Returns the memory (B, S_src, D)."""
     x = _array(source, _device(params))
     if "frontend_proj" in params and \
@@ -365,7 +429,8 @@ def encode(params: Params, cfg: ModelConfig, source) -> torch.Tensor:
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     enc = params["encoder"]
     x, _, _ = _run_blocks(enc["blocks"], cfg, x, positions, "full",
-                          is_causal=False, pattern=(_ENCODER_SPEC,))
+                          is_causal=False, pattern=(_ENCODER_SPEC,),
+                          remat=remat)
     return apply_norm(enc["final_norm"], x, cfg.norm_type, cfg.norm_eps)
 
 
@@ -379,39 +444,66 @@ def _precompute_cross_kv(params: Params, cfg: ModelConfig,
             out.append({})
             continue
         cross = params["blocks"][pos]["cross"]
-        kvs = [attn.make_cross_kv(_rep(cross, r), cfg, memory)
-               for r in range(cross["wk"].shape[0])]
+        kvs = [attn.make_cross_kv(p, cfg, memory)
+               for p in _unstack(cross, cross["wk"].shape[0])]
         out.append({"ck": torch.stack([k for k, _ in kvs]),
                     "cv": torch.stack([v for _, v in kvs])})
     return out
 
 
-def _cross_kv(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
-              ) -> Optional[List[Params]]:
+def _cross_kv(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+              remat: bool = False) -> Optional[List[Params]]:
     """The encoder's cross K/V for an enc-dec batch, else ``None``."""
     if not cfg.is_encoder_decoder:
         return None
-    return _precompute_cross_kv(params, cfg,
-                                encode(params, cfg, batch["source_frames"]))
+    return _precompute_cross_kv(
+        params, cfg, encode(params, cfg, batch["source_frames"], remat))
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: bool = False, logits_dtype: Optional[torch.dtype] = None,
+            remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. ``batch``: ``tokens`` (B, S), and
     ``source_frames`` (enc-dec) or ``prefix_embeddings`` (vision prefix).
-    Returns (logits (B, S_tot, V) f32, prefix positions included; the MoE
-    layers' summed aux loss (f32 scalar; 0 without MoE layers))."""
-    cross_kv = _cross_kv(params, cfg, batch)
+    Returns (logits (B, S_tot, V) f32, or ``logits_dtype``, prefix
+    positions included; the MoE layers' summed aux loss (f32 scalar; 0
+    without MoE layers)). ``remat`` recomputes every block (encoder
+    included) in the backward pass, under ``remat_policy``."""
+    cross_kv = _cross_kv(params, cfg, batch, remat)
     x, positions = _embed_inputs(params, cfg, batch)
     x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full",
-                            cross_kv=cross_kv)
+                            cross_kv=cross_kv, remat=remat,
+                            remat_policy=remat_policy)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.tie_embeddings)
+    if logits_dtype is not None:
+        logits = logits.to(logits_dtype)
     return logits, aux
+
+
+def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+               remat: bool = True, aux_coef: float = AUX_LOSS_COEF,
+               remat_policy: str = "full"
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training objective: ``forward``'s logits rounded to bf16, the
+    prefix positions dropped, their token cross-entropy against
+    ``batch["labels"]`` (B, S_text) plus ``aux_coef`` times the MoE aux
+    loss. Returns (loss, {"ce", "aux_loss"})."""
+    logits, aux = forward(params, cfg, batch, remat=remat,
+                          logits_dtype=torch.bfloat16,
+                          remat_policy=remat_policy)
+    labels = _tokens(batch["labels"], logits.device)
+    prefix_len = logits.shape[1] - labels.shape[1]
+    if prefix_len:
+        logits = logits[:, prefix_len:]
+    ce = cross_entropy_loss(logits, labels)
+    total = ce + aux_coef * aux
+    return total, {"ce": ce, "aux_loss": aux}
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],

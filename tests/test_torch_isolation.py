@@ -2,9 +2,9 @@
 move to the CPU.
 
 * In a fresh interpreter, importing every ``repro_torch`` module (the
-  baselines, admission, scenarios, fleet and MoE modules among them) and
-  ``chip_smoke`` leaves neither ``jax`` (nor ``jaxlib``) nor any ``repro``
-  module in ``sys.modules``.
+  baselines, admission, scenarios, fleet, MoE and training modules among
+  them) and ``chip_smoke`` leaves neither ``jax`` (nor ``jaxlib``) nor any
+  ``repro`` module in ``sys.modules``.
 * The entry points default to ``device="cuda"``: without a CUDA device they
   raise instead of running on the CPU.
 """
@@ -40,11 +40,18 @@ for n in NEW_MODULES:
 print(len(names), ' '.join(bad))
 """
 # the serving layer's numpy copies (baselines, admission, scenarios, the
-# elastic fleet) and the mixture-of-experts FFN
+# elastic fleet), the mixture-of-experts FFN, and the training path
+# (optimizer, train step, synthetic data, checkpoints, shape cells, the
+# train launcher)
 NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
                "repro_torch.serving.baselines", "repro_torch.distributed",
                "repro_torch.distributed.fault_tolerance",
-               "repro_torch.models.moe")
+               "repro_torch.models.moe", "repro_torch.training",
+               "repro_torch.training.optimizer",
+               "repro_torch.training.train_step",
+               "repro_torch.training.data", "repro_torch.checkpoint",
+               "repro_torch.checkpoint.manager", "repro_torch.configs.shapes",
+               "repro_torch.launch.train", "repro_torch.tree")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -125,3 +132,32 @@ def test_serve_modes_raise_without_cuda(monkeypatch, tmp_path, extra):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--artifact", str(tmp_path / "none.npz")] + extra)
     assert not (tmp_path / "m.jsonl").exists()
+
+
+def test_train_launcher_raises_without_cuda(monkeypatch, tmp_path, capsys):
+    """``repro_torch.launch.train`` defaults to the card: without one it
+    raises before any work; ``--device cpu`` trains on the CPU."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "qwen2-0.5b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "8", "--log-every", "1", "--ckpt-every", "1",
+            "--ckpt-dir", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(args)
+    assert not (tmp_path / "ck").exists()
+    train.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "step     1 loss=" in out and out.rstrip().endswith("done")
+    assert (tmp_path / "ck" / "LATEST").read_text() == "step_000000001"
+
+
+def test_train_module_refuses_without_cuda_in_a_fresh_interpreter():
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-0.5b", "--smoke", "--steps", "1"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "step" not in out.stdout

@@ -6,9 +6,14 @@ against repro.kernels.ref on the same seeded numpy inputs, over the shape
 sweeps of tests/test_kernels.py. The CUDA kernels themselves are held
 against the plain versions on the card by tests/test_torch_kernels_cuda.py.
 
+The flash backward has no Pallas counterpart: its plain version
+(``ref.flash_attention_bwd_ref``) is held against ``jax.grad`` of the JAX
+model's ``sdpa_gqa``.
+
 Tolerances: indices exactly equal; top-2 gaps within 1e-6 (the same f32
 subtraction of the same two values, ties included); attention within
-1e-5 in f32 (different summation order).
+1e-5 in f32 (different summation order); its gradients within 1e-5 of
+each's largest entry.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +27,8 @@ from repro.kernels.top2gap import top2gap_pallas
 from repro_torch import kernels as K
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.top2gap import argmax_gap, top2gap
 
 # the suite runs under pytest-xdist: one intra-op thread per worker keeps
@@ -247,3 +253,187 @@ def test_concurrent_first_use_builds_and_loads_a_kernel_once(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert calls == {"build": 1, "load": 1}
     assert len(got) == len(threads) and all(f is got[0] for f in got)
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (no Pallas counterpart: JAX differentiates sdpa)
+# ---------------------------------------------------------------------------
+
+_BWD_SHAPES = [  # b, sq, sk, h, kv, causal, window
+    (2, 70, 70, 4, 2, True, 0),       # causal, a ragged last tile
+    (1, 130, 130, 8, 2, True, 48),    # windowed past the window
+    (2, 33, 77, 4, 4, False, 0),      # full, Sk != Sq (cross attention)
+    (1, 64, 40, 4, 1, False, 0),      # full, fewer keys than queries
+]
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", _BWD_SHAPES)
+def test_flash_attention_bwd_ref_matches_jax_grad(b, sq, sk, h, kv, causal,
+                                                  window, d):
+    """dq, dk, dv of the plain backward against ``jax.grad`` of the JAX
+    model's ``sdpa_gqa`` (its causal/windowed mask, or none) on the same
+    inputs and output gradient, f32, within 1e-5 of each's largest
+    entry."""
+    import jax
+    from repro.models import attention as JA
+    seed = 100 + sq + sk + d
+    q = _rand(seed, (b, sq, h, d))
+    k = _rand(seed + 1, (b, sk, kv, d))
+    v = _rand(seed + 2, (b, sk, kv, d))
+    do = _rand(seed + 3, (b, sq, h, d))
+    mask = JA.causal_mask(sq, sk, window) if causal else None
+
+    def loss(q, k, v):
+        return jnp.sum(JA.sdpa_gqa(q, k, v, mask) * do)
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                                  for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    o = tref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    grads = tref.flash_attention_bwd_ref(qt, kt, vt, o, torch.from_numpy(do),
+                                         causal=causal, window=window)
+    for g, jg, t in zip(grads, jgrads, (qt, kt, vt)):
+        jg = np.asarray(jg)
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        np.testing.assert_allclose(g.numpy(), jg, rtol=0,
+                                   atol=1e-5 * float(np.abs(jg).max()))
+
+
+def test_flash_attention_differentiates_on_the_cpu_and_counts_nothing():
+    """On a CPU tensor the wrapper's output carries autograd's graph
+    through the plain version, whose gradients are the plain backward's;
+    neither wrapper counts a launch there. bf16 inputs give bf16
+    gradients."""
+    K.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(_rand(i, (2, 40, n, 64))).to(dtype)
+                   .requires_grad_(True) for i, n in ((1, 4), (2, 2),
+                                                       (3, 2)))
+        do = torch.from_numpy(_rand(4, (2, 40, 4, 64))).to(dtype)
+        out = flash_attention(q, k, v, causal=True, window=16)
+        assert out.grad_fn is not None
+        out.backward(do)
+        ref_grads = flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), do, causal=True,
+                                        window=16)
+        for t, g in zip((q, k, v), ref_grads):
+            assert t.grad.dtype == dtype == g.dtype
+            torch.testing.assert_close(t.grad.float(), g.float(), atol=2e-2
+                                       if dtype == torch.bfloat16 else 1e-6,
+                                       rtol=0)
+    assert K.launch_counts()["flash_attention"] == 0
+    assert K.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_forward_only_kernels_differentiate_on_the_cpu():
+    """decode_attention, mamba_scan and top2gap have no backward kernel;
+    on the CPU their plain versions still carry gradients (their CUDA
+    wrappers refuse inputs that require grad; see the cuda tests)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    q = torch.from_numpy(_rand(1, (2, 4, 32))).requires_grad_(True)
+    kc = torch.from_numpy(_rand(2, (2, 10, 2, 32))).requires_grad_(True)
+    out = decode_attention(q, kc, kc, torch.tensor([3, 10]))
+    out.sum().backward()
+    assert q.grad is not None and kc.grad is not None
+    assert float(kc.grad[0, 3:].abs().max()) == 0.0   # masked slots
+    x = torch.from_numpy(_rand(3, (1, 5, 8))).requires_grad_(True)
+    dt = torch.full((1, 5, 8), 0.1, requires_grad=True)
+    y, h = mamba_scan(dt, -torch.ones(8, 4), torch.ones(1, 5, 4),
+                      torch.ones(1, 5, 4), torch.ones(8), x)
+    (y.sum() + h.sum()).backward()
+    assert x.grad is not None and dt.grad is not None
+    s = torch.from_numpy(_rand(4, (3, 50))).requires_grad_(True)
+    gap, _ = top2gap(s)
+    gap.sum().backward()
+    assert float(s.grad.abs().sum()) == pytest.approx(6.0)
+
+
+def test_forward_only_refuses_tracked_inputs():
+    """The contract the CUDA wrappers of the forward-only kernels apply
+    before a launch: with grad mode on and an input that requires grad it
+    raises, pointing at the roadmap; under no_grad, or with no tracked
+    input, it lets the launch through."""
+    from repro_torch.kernels import counts
+    a = torch.zeros(2, requires_grad=True)
+    b = torch.zeros(2)
+    with pytest.raises(RuntimeError, match="no backward.*queue 1, item 2"):
+        counts.forward_only("decode_attention", b, a)
+    counts.forward_only("decode_attention", b, None)
+    with torch.no_grad():
+        counts.forward_only("decode_attention", a, b)
+
+
+_BWD64_CASES = [(True, 0, 40, 40), (True, 9, 50, 50), (False, 0, 20, 33)]
+
+
+def _bwd64(causal, window, sq, sk):
+    """Seeded inputs (o the f32 output rounded to bf16) and the backward
+    written out in float64: P, dS = P (dP - D(o)) and the inputs, with k
+    repeated over each GQA group."""
+    b, h, kv, d = 2, 4, 2, 32
+    q, k, v, do = (torch.from_numpy(_rand(i, shape)) for i, shape in
+                   ((1, (b, sq, h, d)), (2, (b, sk, kv, d)),
+                    (3, (b, sk, kv, d)), (4, (b, sq, h, d))))
+    o16 = tref.flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).bfloat16().float()
+    qd, kd, vd, dod, od = (t.double() for t in (q, k, v, do, o16))
+    kr, vr = kd.repeat_interleave(h // kv, 2), vd.repeat_interleave(
+        h // kv, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kr) / d ** 0.5
+    if causal:
+        i = torch.arange(sq)
+        keep = i[None] <= i[:, None]
+        if window:
+            keep &= i[None] > i[:, None] - window
+        s = s.masked_fill(~keep, -float("inf"))
+    p = torch.softmax(s, -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vr)
+    ds = p * (dp - (dod * od).sum(-1).transpose(1, 2)[..., None])
+    return (q, k, v, o16, do), (p, ds, qd, kr, dod)
+
+
+def _by_kv_head(x, kv):
+    """(B, Sk, H, hd) summed over each GQA group: (B, Sk, KV, hd)."""
+    b, sk, h, d = x.shape
+    return x.reshape(b, sk, kv, h // kv, d).sum(3)
+
+
+@pytest.mark.parametrize("causal,window,sq,sk", _BWD64_CASES)
+def test_flash_attention_bwd_ref_reads_delta_from_o(causal, window, sq, sk):
+    """The plain backward reads D = dO . o from the o given: where o is
+    the f32 output rounded to bf16 it equals the backward written out in
+    float64 (P, dP, dS = P (dP - D(o)))."""
+    ins, (p, ds, qd, kr, dod) = _bwd64(causal, window, sq, sk)
+    kv, d = ins[1].shape[2], ins[0].shape[3]
+    got = tref.flash_attention_bwd_ref(*ins, causal, window)
+    want = (torch.einsum("bhqk,bkhd->bqhd", ds, kr) / d ** 0.5,
+            _by_kv_head(torch.einsum("bhqk,bqhd->bkhd", ds, qd), kv)
+            / d ** 0.5,
+            _by_kv_head(torch.einsum("bhqk,bqhd->bkhd", p, dod), kv))
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("causal,window,sq,sk", _BWD64_CASES)
+def test_bwd_rounding_scale_is_the_terms_root_sum_square(causal, window, sq,
+                                                         sk):
+    """``profiling.flash_bwd_ab.rounding_scale``, the scale of the bf16
+    backward's P and dS roundings that chip_smoke's limit reads: the
+    root-sum-square of the terms of dq = dS.K, dk = dS^T.Q (each over
+    sqrt(hd)) and dv = P^T.dO, written out in float64, within 1e-5 of
+    each's largest entry."""
+    from repro_torch.profiling.flash_bwd_ab import rounding_scale
+    ins, (p, ds, qd, kr, dod) = _bwd64(causal, window, sq, sk)
+    kv, d = ins[1].shape[2], ins[0].shape[3]
+    got = rounding_scale(*ins, causal, window)
+    want = ((torch.einsum("bhqk,bkhd->bqhd", ds ** 2, kr ** 2) / d).sqrt(),
+            (_by_kv_head(torch.einsum("bhqk,bqhd->bkhd", ds ** 2, qd ** 2),
+                         kv) / d).sqrt(),
+            _by_kv_head(torch.einsum("bhqk,bqhd->bkhd", p ** 2, dod ** 2),
+                        kv).sqrt())
+    for x, w in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))

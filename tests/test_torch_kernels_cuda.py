@@ -10,8 +10,11 @@ plain version on the same inputs (bf16 output rounding, and in the bf16
 flash kernel P rounded to bf16 before P.V as the JAX model does; the
 kernels use the fast exp); the selective scan within 2e-4 of its plain
 version (f32 throughout, other summation order over N; the JAX sweep's
-limit); the
-smoke-size models within 1e-4 of their CPU runs in f32; the tiny
+limit); the flash backward within 1e-4 (f32) and 1e-2 (bf16) of each
+gradient's largest entry in its plain version (the bf16 output rounded
+once, and D = dO . o read from the bf16 o); the
+smoke-size models within 1e-4 of their CPU runs in f32, a train step's
+gradients within 1e-4 of each leaf's largest entry; the tiny
 classifier's scores within 1e-4 of its CPU run in f32, and the certainties
 ``EngineBackend.execute`` reduces on the card bit-equal to the CPU's for
 the same scores.
@@ -28,7 +31,8 @@ from repro_torch.core.certainty import device_fold_init
 from repro_torch.core.gears import Gear
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.top2gap import argmax_gap, top2gap
 from repro_torch.models import model as TM
@@ -1094,3 +1098,192 @@ def test_inference_engine_serves_concurrent_threads_their_own_scores(cuda):
     assert not any(t.is_alive() for t in threads)
     assert not bad and len(eng.graphs) == 1
     assert eng.graphs.replays == n_threads * 101
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward and training on the card
+# ---------------------------------------------------------------------------
+
+def _bwd_case(dev, dtype, b, sq, sk, h, kv, d, causal, window, seed=0):
+    q = torch.from_numpy(_rand(seed, (b, sq, h, d))).to(dev, dtype)
+    k = torch.from_numpy(_rand(seed + 1, (b, sk, kv, d))).to(dev, dtype)
+    v = torch.from_numpy(_rand(seed + 2, (b, sk, kv, d))).to(dev, dtype)
+    do = torch.from_numpy(_rand(seed + 3, (b, sq, h, d))).to(dev, dtype)
+    o = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window).to(dtype)
+    return q, k, v, o, do
+
+
+def _rel(a, r, scale=None):
+    """max |a - r| over the largest |r| (or over ``scale``)."""
+    return float((a.float() - r).abs().max()
+                 / (r.abs().max() if scale is None else scale))
+
+
+_BWD_CASES = [(mode, 2, 65, 65, 4, 2) for mode in sorted(_MODES)] + [
+    (mode, 1, 200, 200, 14, 2) for mode in sorted(_MODES)] + [
+    (mode, 2, 1, 1, 2, 1) for mode in sorted(_MODES)] + [
+    ("full", 3, 33, 77, 4, 4), ("full", 1, 130, 64, 8, 2)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("mode,b,sq,sk,h,kv", _BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, tol, d, mode,
+                                                  b, sq, sk, h, kv):
+    """dq, dk, dv of the backward kernel against the plain backward on the
+    same inputs (o the f32 forward rounded to the dtype; D = dO . o read
+    from it, as the kernel reads it): causal, windowed (7, 100) and full,
+    Sk != Sq in the full form only, tiles ragged on both axes, GQA groups
+    1-7, hd 32-128; f32 within 1e-4 and bf16 within 1e-2 of each
+    gradient's largest entry (the bf16 output's rounding and P's and dS's
+    as bf16 operands). At one query
+    over one key dq and dk vanish in exact arithmetic: there each is held
+    within the same share of dv's largest entry."""
+    causal, window = _MODES[mode]
+    ins = _bwd_case(cuda, dtype, b, sq, sk, h, kv, d, causal, window)
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(*ins, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    refs = tref.flash_attention_bwd_ref(*(t.float() for t in ins),
+                                        causal=causal, window=window)
+    scale = float(refs[2].abs().max()) if sq == sk == 1 else None
+    for g, r, t in zip(grads, refs, ins):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, r, scale) <= tol
+
+
+def test_flash_attention_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two calls give the same bits (the resume check's
+    premise)."""
+    ins = _bwd_case(cuda, torch.bfloat16, 2, 300, 300, 14, 2, 64, True, 0)
+    a = flash_attention_bwd(*ins)
+    b = flash_attention_bwd(*ins)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_autograd_runs_the_backward_kernel(cuda):
+    """On the card with inputs that require grad the wrapper returns an
+    output with a grad_fn; backward launches the backward kernel once and
+    gives the plain backward's gradients. Under no_grad the same call
+    launches the forward only and returns no graph."""
+    q, k, v, _, do = _bwd_case(cuda, torch.float32, 2, 96, 96, 8, 2, 64,
+                               True, 40)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v, window=40)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.launches == b0 + 1
+    refs = tref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), do, window=40)
+    for t, r in zip((q, k, v), refs):
+        assert _rel(t.grad, r) <= 1e-4
+    with torch.no_grad():
+        assert flash_attention(q, k, v, window=40).grad_fn is None
+    assert flash_attention_bwd.launches == b0 + 1
+
+
+def test_flash_attention_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, o, do = _bwd_case(cuda, torch.float32, 1, 8, 8, 4, 2, 64, True,
+                               0)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o[:, :4], do)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, o.bfloat16(), do)
+    wide = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(torch.zeros(1, 8, 4, 96, device=cuda), wide,
+                            wide, torch.zeros(1, 8, 4, 96, device=cuda),
+                            torch.zeros(1, 8, 4, 96, device=cuda))
+    assert flash_attention_bwd.launches == before
+
+
+def test_forward_only_kernels_raise_under_grad_on_the_card(cuda):
+    """decode_attention, top2gap and mamba_scan have no backward kernel:
+    on CUDA inputs that require grad (grad mode on) each raises instead of
+    returning an output without a grad_fn; under no_grad each launches."""
+    q = torch.zeros(2, 4, 64, device=cuda, requires_grad=True)
+    kc = torch.zeros(2, 16, 2, 64, device=cuda)
+    s = torch.zeros(2, 100, device=cuda, requires_grad=True)
+    dt = torch.full((1, 5, 64), 0.1, device=cuda, requires_grad=True)
+    a, bc = -torch.ones(64, 16, device=cuda), torch.ones(1, 5, 16,
+                                                        device=cuda)
+    x, dv = torch.ones(1, 5, 64, device=cuda), torch.ones(64, device=cuda)
+    before = {f: f.launches for f in (decode_attention, top2gap, mamba_scan)}
+    for call in (lambda: decode_attention(q, kc, kc, 8),
+                 lambda: top2gap(s),
+                 lambda: mamba_scan(dt, a, bc, bc, dv, x)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert all(f.launches == n for f, n in before.items())
+    with torch.no_grad():
+        decode_attention(q, kc, kc, 8)
+        top2gap(s)
+        mamba_scan(dt, a, bc, bc, dv, x)
+    torch.cuda.synchronize()
+    assert all(f.launches == n + 1 for f, n in before.items())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmo-1b", "h2o-danube-1.8b",
+                                  "internvl2-1b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch, remat):
+    """One train step at smoke size in f32: the loss and every gradient
+    on the card (the flash kernels forward and backward) within 1e-4 of
+    each leaf's largest CPU entry, and the parameters after AdamW within
+    what the gradients' difference moves them; flash launches = attention
+    layers x (1 + remat), backward launches = attention layers."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import AdamWConfig, adamw_update, \
+        init_opt_state
+    cfg = get_smoke_config(arch)
+    p_cpu = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40))
+             .astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 40))
+             .astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        batch["source_frames"] = _rand(6, (2, 70, cfg.frontend.frontend_dim))
+    if cfg.frontend.kind == "vision":
+        batch["prefix_embeddings"] = _rand(
+            7, (2, cfg.frontend.num_prefix_embeddings,
+                cfg.frontend.frontend_dim))
+    layers = cfg.num_layers      # self attention; enc-dec: + cross
+    if cfg.is_encoder_decoder:
+        layers = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers
+    out = []
+    for p in (p_cpu, _to(p_cpu, cuda)):
+        leaves = tree_lib.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        reset_launch_counts()
+        loss, _ = TM.train_loss(p, cfg, batch, remat=remat)
+        loss.backward()
+        counts = launch_counts()
+        grads = [t.grad for t in leaves]
+        adamw_update(p, grads, init_opt_state(p),
+                     AdamWConfig(learning_rate=1e-3, eps=1e-3))
+        out.append((float(loss.detach()), [g.cpu() for g in grads],
+                    [t.detach().cpu() for t in leaves], counts))
+    assert out[1][0] == pytest.approx(out[0][0], rel=1e-5)
+    for g, r in zip(out[1][1], out[0][1]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4 * float(
+            r.abs().max()) + 1e-12)
+    # eps 1e-3 keeps the update smooth: a weight moves by at most lr/eps
+    # per unit of gradient difference
+    for a, r, g, rg in zip(out[1][2], out[0][2], out[1][1], out[0][1]):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-3 * (
+            1e-3 + float((g - rg).abs().max()) / 1e-3) + 1e-6)
+    assert out[0][3]["flash_attention"] == 0
+    assert out[1][3]["flash_attention"] == layers * (2 if remat else 1)
+    assert out[1][3]["flash_attention_bwd"] == layers

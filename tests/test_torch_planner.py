@@ -54,7 +54,7 @@ VERBATIM = ["core/profiles.py", "core/lp.py", "core/cascade.py",
             "core/adaption.py", "core/tenancy.py",
             "profiling/cost_model.py", "core/admission.py",
             "core/scenarios.py", "serving/baselines.py",
-            "distributed/fault_tolerance.py"]
+            "distributed/fault_tolerance.py", "training/data.py"]
 # verbatim definitions inside modules that are otherwise ported
 VERBATIM_DEFS = {
     "core/execution.py": ["resolve_estimator", "BatchExecution",
@@ -66,6 +66,8 @@ VERBATIM_DEFS = {
     "serving/runtime.py": ["Request", "_ReplicaQueue", "CascadeServer",
                            "_TenantReplicaQueue", "MultiTenantServer"],
     "launch/serve.py": ["dump_metrics", "parse_slo", "parse_tenants"],
+    "configs/shapes.py": ["ShapeCell", "SHAPES", "cell_is_applicable",
+                          "skip_reason", "text_len", "source_len"],
     "serving/tinymodels.py": ["TinyClassifierConfig", "TINY_FAMILY",
                               "synthetic_classification_data",
                               "_FAMILY_STEPS", "_FAMILY_LR"],
