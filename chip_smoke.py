@@ -57,7 +57,14 @@ launch counts include graph replays.
              bf16 o, as the kernel reads it),
              rejecting the plain version with the full form's pad keys
              unmasked (seamless) or the window's edge one key late
-             (danube); timed beside the backward of SDPA.
+             (danube); timed beside the backward of SDPA. Then the
+             selective scan's backward (no TPU counterpart) at the
+             training shape (B 4, S 512, Di 8192, N 16, x bf16) and six
+             more: every gradient within MAMBA_BWD_TOL of its largest
+             entry in the plain reverse recurrence (a bf16 dx also within
+             its rounding), two calls bit-equal, the decay a step early
+             and h0's term dropped rejected; timed with the forward
+             kernel at the training shape.
 4. serve   — the main path: a two-stage cascade of full-width qwen2-0.5b
              models (random bf16 weights from seeds 0 and 1) served by the
              fused ``TokenEngine`` (8 KV slots of 512 tokens, spec_k 4):
@@ -192,7 +199,21 @@ launch counts include graph replays.
              and device ms against 6 and 8 x params x tokens at the bf16
              peak, and the peak memory (weights, gradients, m and v: 12 B
              a parameter, 6-22 GB).
-18. train_resume — in a process of its own (CUBLAS_WORKSPACE_CONFIG set,
+18-20. train_falcon_mamba, train_moe, train_jamba — the same at full
+             width with the depth cut to fit the card (TRAIN_LAYERS:
+             falcon-mamba-7b 40 of 64 layers, qwen2-moe-a2.7b 6 of 24,
+             jamba-v0.1 its first 3 of 32; 4.0-4.7 B parameters), B 4 x
+             512: the scan kernels forward, recomputed and backward in
+             every Mamba layer, the MoE dispatch and expert products under
+             autograd. f32 checks at 2 layers (falcon-mamba; A_log's, D's
+             and dt_proj's readings apart) and 1 (qwen2-moe; its routes
+             equal the CPU's, the smallest router margin printed, a
+             differing route named a near-tie under ROUTE_TIE); none for
+             jamba. Launches per step: each forward kernel 2 x its layers,
+             each backward kernel 1 x; the MoE models' bound over their
+             active parameters, the all-expert one beside it; device time
+             by kind with the scan backward and the expert products apart.
+21. train_resume — in a process of its own (CUBLAS_WORKSPACE_CONFIG set,
              ``torch.use_deterministic_algorithms(True)``): qwen2-0.5b at
              the train_qwen2 shape, RESUME_AT steps, a ``CheckpointManager``
              save into a temporary directory (deleted after), RESUME_K
@@ -200,8 +221,9 @@ launch counts include graph replays.
              bit-equal to the saved state, and RESUME_K steps from it
              bit-equal to the uninterrupted run (an op without a
              deterministic implementation would be named and the run held
-             within RESUME_TOL instead).
-19. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
+             within RESUME_TOL instead); then the same for falcon-mamba-7b
+             cut to 2 layers (``train_resume_ssm``).
+22. cost_model — the H100 analytic cost model (``repro_torch.profiling``)
              beside the profiler windows' device ms per decode step for
              the four token models (and the time to read every weight a
              step reads: for the MoE all 64 experts, where the model
@@ -209,7 +231,7 @@ launch counts include graph replays.
              and device ms from the trace window's profiled repeat); the
              ``--workload qwen`` plan and DES through the serve CLI's own
              functions (qwen3-32b must place on one card).
-20. serve_tiny — the paper's one-shot classifier lifecycle through
+23. serve_tiny — the paper's one-shot classifier lifecycle through
              ``repro_torch.launch.serve``'s own functions: the tiny family
              (five transformers, d 16-96) trains on the card, every member
              is profiled through the ``EngineBackend`` that serves it, the
@@ -229,8 +251,8 @@ launch counts include graph replays.
              and idle share) and a real run at the reference's default
              2000 qps (numbers only) follow, and ``serve_tiny_fidelity``
              puts real p95 beside the simulator's at both loads.
-21. serve_baselines — the paper's baselines (``serving/baselines.py``)
-             over the family and profiles of phase 20 (not trained
+24. serve_baselines — the paper's baselines (``serving/baselines.py``)
+             over the family and profiles of phase 23 (not trained
              again). ``serve_baselines_grid``: the paper's Fig. 7 on the
              simulator, the fewest logical devices (1-8, binary search)
              with which CascadeServe's plan, DynBa's grid and MS+'s grid
@@ -240,14 +262,14 @@ launch counts include graph replays.
              factor, and Cocktail+'s time-averaged active devices on 8.
              Then DynBa (the most accurate model) and MS+ through
              ``build_plan`` on the threaded ``CascadeServer`` with the
-             policy's selector, at 60 and 2,000 qps as in phase 20, each
+             policy's selector, at 60 and 2,000 qps as in phase 23, each
              beside the simulator's run of the same policy and trace, and
              a ``serve_baselines`` line with CascadeServe's runs of phase
              20. Checks: at 60 qps at least 95 % done, every request
              served within its gear's cascade, top2gap launched once per
              executed batch in every run, and Cocktail+'s ``build_plan``
              refusing its ensemble gears.
-22. serve_tenants — the reference CLI's two-tenant example
+25. serve_tenants — the reference CLI's two-tenant example
              (``interactive:latency:0.3:600:2,batch:latency:1.0:600:1``)
              planned by ``plan_multi_tenant`` for the 2 logical devices,
              both tenants' azure-like traces superposed and served by the
@@ -297,7 +319,8 @@ from repro_torch.kernels.decode_attention import \
     decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
-from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan import (mamba_scan,  # noqa: E402
+                                            mamba_scan_bwd)
 from repro_torch.kernels.top2gap import top2gap  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -379,7 +402,23 @@ FORWARD_PEAK_LIMIT = 20e9     # bytes allocated at most in each such phase
 # model's batch, positions per row (internvl2: 256 prefix + 200 text;
 # seamless: 128 decoder positions over 500 source frames)
 TRAIN_SHAPES = {ARCH: (8, 512), OLMO_ARCH: (4, 512), DANUBE_ARCH: (1, 4200),
-                INTERNVL_ARCH: (4, 456), SEAMLESS_ARCH: (4, 128)}
+                INTERNVL_ARCH: (4, 456), SEAMLESS_ARCH: (4, 128),
+                SSM_ARCH: (4, 512), MOE_ARCH: (4, 512), JAMBA_ARCH: (4, 512)}
+# the SSM, MoE and hybrid models train at full width with their depth cut
+# to fit the card at 12 B a parameter (bf16 params and gradients, f32 m and
+# v) beside the activations: 40 of falcon-mamba-7b's 64 layers (4.74 B
+# parameters, 56.9 GB), 6 of qwen2-moe's 24 (4.05 B, 60 experts padded to
+# 64), jamba-v0.1's first 3 of 32 (4.02 B: Mamba + dense FFN, Mamba +
+# 16-expert MoE, Mamba + dense FFN; its first attention layer is its 5th)
+TRAIN_LAYERS = {SSM_ARCH: 40, MOE_ARCH: 6, JAMBA_ARCH: 3}
+# layers of the f32 gradient check where not TRAIN_CUT: qwen2-moe at one
+# (1.19 B f32 parameters, about 5 GB on each side); none for jamba (two
+# layers hold 3.74 B f32 parameters on the host; its Mamba layers have
+# falcon-mamba's shapes, and qwen2-moe's check covers the MoE backward)
+TRAIN_CHECK_LAYERS = {MOE_ARCH: 1, JAMBA_ARCH: 0}
+# the router guard of the MoE gradient check: a token whose k-th and
+# (k+1)-th f32 router logits lie closer than this on the CPU is a near-tie
+ROUTE_TIE = 1e-4
 TRAIN_SRC = 500
 TRAIN_WARM, TRAIN_STEPS = 2, 8  # steps before the timed ones, timed steps
 TRAIN_LR = 1e-3                 # AdamW, warmup 2, over a repeated batch
@@ -391,6 +430,12 @@ TRAIN_CUT = 2                   # layers of the f32 gradient check
 # apart); a gradient the card dropped would miss by its whole size
 TRAIN_GRAD_TOL = 1e-3
 BWD_F32_TOL = 1e-4              # f32 backward kernel, relative to the max
+# the selective scan's backward against its plain reverse recurrence, each
+# gradient relative to its largest entry: f32 sums in other orders (dA and
+# dD over B x S terms, dB and dC over Di), and the kernel's ex2.approx
+# decays (2^-22 relative each), which the carry g compounds over the
+# ~1 / (dt |a|) steps it remembers (about 20 at dt 0.05, |a| 1)
+MAMBA_BWD_TOL = 1e-5
 N_SLOTS, MAX_LEN, SPEC_K = 8, 512, 4
 N_REQ, MAX_NEW, PROMPT_LO, PROMPT_HI = 16, 32, 16, 200
 MIN_TOKENS, EARLY_MARGIN = 4, 0.5
@@ -1185,10 +1230,204 @@ def kernel_flash_bwd(dev) -> dict:
     return row
 
 
+def _scan_inputs(dev, g, b, s, di, n, x_dtype, with_h0=False,
+                 with_dh=False):
+    """Selective-scan operands as the SSM layer makes them (dt a softplus
+    around 0.05, a = -exp(U(0, 1.1))), a cotangent dy, and dh_last."""
+    dt = F.softplus(torch.randn(b, s, di, generator=g, device=dev) * 0.5
+                    - 3.0)
+    a = -torch.exp(torch.rand(di, n, generator=g, device=dev) * 1.1)
+    bm = torch.randn(b, s, n, generator=g, device=dev)
+    cm = torch.randn(b, s, n, generator=g, device=dev)
+    d = torch.randn(di, generator=g, device=dev)
+    x = torch.randn(b, s, di, generator=g, device=dev).to(x_dtype)
+    h0 = torch.randn(b, di, n, generator=g, device=dev) if with_h0 else None
+    dy = torch.randn(b, s, di, generator=g, device=dev)
+    dh = torch.randn(b, di, n, generator=g, device=dev) if with_dh else None
+    return (dt, a, bm, cm, d, x, h0, dy, dh)
+
+
+def _scan_bwd_trap(dt, a, bm, cm, d, x, h0, dy, dh, trap: str):
+    """``ref.mamba_scan_bwd_ref`` with one kernel bug built in: ``"decay"``
+    carries g_{t+1} into step t with step t's own decay e_t, not e_{t+1};
+    ``"h0"`` drops the initial state's term (the states start from zero).
+    Returns its (ddt, da, db, dc, dd, dx)."""
+    if trap == "h0":
+        return ref.mamba_scan_bwd_ref(dt, a, bm, cm, d, x, None, dy, dh)[:6]
+    xf = x.float()
+    h = h0.clone()
+    hs = [h]
+    for t in range(x.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * xf[:, t])[..., None] * bm[:, t, None, :])
+        hs.append(h)
+    carry = torch.zeros_like(h) if dh is None else dh.clone()
+    ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
+    db, dc = torch.empty_like(bm), torch.empty_like(cm)
+    da = torch.zeros_like(a)
+    for t in reversed(range(x.shape[1])):
+        e = torch.exp(dt[:, t, :, None] * a)
+        g = dy[:, t, :, None] * cm[:, t, None, :] + carry
+        dc[:, t] = torch.einsum("bin,bi->bn", hs[t + 1], dy[:, t])
+        db[:, t] = torch.einsum("bin,bi->bn", g, dt[:, t] * xf[:, t])
+        dx[:, t] = (dt[:, t] * torch.einsum("bin,bn->bi", g, bm[:, t])
+                    + d * dy[:, t])
+        ddt[:, t] = (g * (a * e * hs[t] + bm[:, t, None, :]
+                          * xf[:, t, :, None])).sum(-1)
+        da += (g * dt[:, t, :, None] * e * hs[t]).sum(0)
+        # the bug: g_t reaches step t - 1 through e_{t-1}, not e_t
+        carry = torch.exp(dt[:, max(t - 1, 0), :, None] * a) * g
+    return ddt, da, db, dc, (dy * xf).sum((0, 1)), dx.to(x.dtype)
+
+
+_SCAN_GRADS = ("ddt", "da", "db", "dc", "dd", "dx", "dh0")
+
+
+def _scan_bwd_limits(want, x_dtype):
+    """Each gradient's elementwise limit against the plain backward in f32
+    on the same (bf16-valued) inputs: MAMBA_BWD_TOL of its largest entry
+    (f32 in another order, and the kernel's fast exponentials), and for a
+    bf16 dx also 2^-8 of the value (the kernel's f32 dx rounded once to
+    bf16)."""
+    out = []
+    for name, w in zip(_SCAN_GRADS, want):
+        if w is None:
+            out.append(None)
+            continue
+        t = MAMBA_BWD_TOL * float(w.float().abs().max()) + torch.zeros_like(
+            w, dtype=torch.float32)
+        if name == "dx" and x_dtype == torch.bfloat16:
+            t = t + w.float().abs() * 2.0 ** -8
+        out.append(t)
+    return out
+
+
+def _over(got, want, tols) -> dict:
+    """{gradient: max |got - want| / limit}."""
+    return {name: float(((gt.float() - w.float()).abs() / t).max())
+            for name, gt, w, t in zip(_SCAN_GRADS, got, want, tols)
+            if w is not None and gt is not None}
+
+
+def kernel_mamba_bwd(dev) -> dict:
+    """The selective scan's backward (no TPU counterpart) against the
+    plain reverse recurrence (``ref.mamba_scan_bwd_ref``) at the training
+    shape of falcon-mamba-7b and jamba (B 4, S 512, Di 8192, N 16, x bf16,
+    no initial state: the row's shape), B 1 at S 200, S 1, S 77 (a tail
+    chunk of 13 steps) over Di 1000 (a tail of 8 channels), N 4 and N 8
+    at Di 256, and f32 with h0 and dh_last at B 2, S 512, Di 8192: every
+    gradient within ``_scan_bwd_limits``; the kernel twice on the same
+    inputs, bit-equal; at the f32 shape the plain version with the decay
+    a step early and with h0's term dropped must fail those limits. Timed
+    (CUDA events, inputs cycled past L2, median of 7) beside the plain
+    version against the least time the card needs: dt, x, dy, B, C, a,
+    D, h0 and dh_last read and every gradient written once, or 2 x B S Di
+    N exponentials (the states are recomputed, not saved by the forward:
+    the decays once for them and once in the reverse pass) at the
+    special-function units' rate; no PyTorch call computes the function.
+    The forward kernel is timed at the training shape too."""
+    di, n = 8192, 16
+    g = _gen(17)
+    shapes = {
+        "train": (4, 512, di, n, torch.bfloat16, False, False),
+        "s200": (1, PROMPT_HI, di, n, torch.bfloat16, False, False),
+        "s1": (2, 1, 256, n, torch.float32, True, True),
+        "tail": (2, 77, 1000, n, torch.float32, True, False),
+        "n4": (2, 100, 256, 4, torch.float32, True, True),
+        "n8": (2, 100, 256, 8, torch.bfloat16, False, True),
+        "f32_h0": (2, 512, di, n, torch.float32, True, True),
+    }
+    rows = {}
+    for key, (b, s, w, nn, xd, with_h0, with_dh) in shapes.items():
+        ins = _scan_inputs(dev, g, b, s, w, nn, xd, with_h0, with_dh)
+        got = mamba_scan_bwd(*ins)
+        again = mamba_scan_bwd(*ins)
+        # in f32 throughout: a bf16 dx is held against the unrounded value
+        want = ref.mamba_scan_bwd_ref(*ins[:5], ins[5].float(), *ins[6:])
+        torch.cuda.synchronize()
+        tols = _scan_bwd_limits(want, xd)
+        over = _over(got, want, tols)
+        same = all((x is None and y is None) or _same_bits(x, y)
+                   for x, y in zip(got, again))
+        what = f"mamba_scan_bwd {key} B={b} S={s} Di={w} N={nn} x {xd}"
+        check(max(over.values()) <= 1.0, f"{what} within its limits "
+                                         f"({over})")
+        check(same, f"{what}: two calls bit-equal")
+        row = dict(shape=f"B={b} S={s} Di={w} N={nn} x "
+                         f"{str(xd).split('.')[-1]}"
+                         + (", h0" if with_h0 else "")
+                         + (", dh_last" if with_dh else ""),
+                   err_over_tol=max(over.values()), over_by_grad=over,
+                   max_abs_err=max(float((gt.float() - wt.float()).abs()
+                                         .max())
+                                   for gt, wt in zip(got, want)
+                                   if wt is not None),
+                   max_rel_err=max(float((gt.float() - wt.float()).abs()
+                                         .max() / wt.float().abs().max())
+                                   for gt, wt in zip(got, want)
+                                   if wt is not None),
+                   bit_equal_twice=same)
+        if key == "f32_h0":
+            row["traps_over_tol"] = {}
+            for trap, what_trap in (("decay", "the decay a step early"),
+                                    ("h0", "h0's term dropped")):
+                bad = _scan_bwd_trap(*ins, trap)
+                r = max(_over(bad, want[:6], tols[:6]).values())
+                row["traps_over_tol"][what_trap] = r
+                check(r > 1.0, f"{what}: a kernel with {what_trap} fails "
+                               f"the check ({r} of the limit)")
+                del bad
+        del got, again, want, tols
+        if key in ("train", "s200"):
+            x_b = ins[5].element_size()
+            nbytes = (b * s * w * (4 + x_b + 4 + 4 + x_b)
+                      + 4 * b * s * nn * 4 + 2 * w * nn * 4 + 2 * w * 4)
+            exps = 2 * b * s * w * nn
+            sets = [ins] + [_scan_inputs(dev, g, b, s, w, nn, xd)
+                            for _ in range(copies(nbytes) - 1)]
+            kms = device_ms([lambda t=t: mamba_scan_bwd(*t) for t in sets])
+            pms = device_ms([lambda t=t: ref.mamba_scan_bwd_ref(*t)
+                             for t in sets[:2]], reps=3, per_window=2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            # per state and step 20 f32 operations beside the exponentials
+            t_ops = max(10 * exps / FP32_FLOP_PER_S, exps / SFU_PER_S) * 1e3
+            row.update(ms=kms, plain_ms=pms, library_ms=None, library=None,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       bound_bytes=nbytes, bound_flops=exps,
+                       bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+            if key == "train":
+                # the forward kernel at the same shape
+                fbytes = (b * s * w * (4 + x_b + 4) + 2 * b * s * nn * 4
+                          + w * nn * 4 + w * 4 + b * w * nn * 4)
+                fexps = b * s * w * nn
+                fms = device_ms([lambda t=t: mamba_scan(*t[:7])
+                                 for t in sets])
+                fpms = device_ms([lambda t=t: ref.mamba_scan_ref(*t[:7])
+                                  for t in sets[:2]], reps=3, per_window=2)
+                fb = fbytes / HBM_BYTES_PER_S * 1e3
+                fo = max(6 * fexps / FP32_FLOP_PER_S,
+                         fexps / SFU_PER_S) * 1e3
+                row["forward"] = dict(
+                    shape=row["shape"], ms=fms, plain_ms=fpms,
+                    library_ms=None, bound_ms=max(fb, fo),
+                    bound_by="bytes" if fb >= fo else "operations",
+                    bound_bytes=fbytes, bound_flops=fexps)
+            del sets
+        rows[key] = row
+        del ins
+    out = dict(name="mamba_scan_bwd", **rows["train"],
+               **{f"at_{k}": r for k, r in rows.items() if k != "train"})
+    for key in ("err_over_tol", "max_abs_err", "max_rel_err"):
+        out[key] = max(r[key] for r in rows.values())
+    return out
+
+
 def phase_kernels(dev) -> dict:
     out = {}
     for fn in (kernel_top2gap, kernel_decode, kernel_flash, kernel_mamba,
-               kernel_flash_bwd):
+               kernel_flash_bwd, kernel_mamba_bwd):
         row = fn(dev)
         emit({"phase": "kernel", **row})
         out[row["name"]] = row
@@ -2129,7 +2368,8 @@ def phase_forward_danube(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training: five attention models at full width, and a resumed run
+# training: five attention models at full width and depth, the SSM, MoE and
+# hybrid models at full width under a depth cut, and resumed runs
 # ---------------------------------------------------------------------------
 
 def _train_batch(cfg, b: int, s: int, seed: int) -> dict:
@@ -2163,19 +2403,40 @@ def _depth_cut(cfg, n: int):
     return cut
 
 
-def _grad_check_f32(dev, cfg, s: int) -> dict:
-    """One f32 train step's gradients at full width, cut to TRAIN_CUT
+def _ssm_layers(cfg) -> int:
+    """Selective scans in one forward: every Mamba layer."""
+    return sum(spec.mixer == "ssm" for spec in model_lib.block_pattern(cfg)) \
+        * model_lib.num_reps(cfg)
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """The kernels one train step with remat launches, times ``steps``:
+    each forward kernel twice per layer (the forward and its recompute in
+    the backward pass) and each backward kernel once; no serving kernel."""
+    n_attn, n_ssm = _attention_layers(cfg), _ssm_layers(cfg)
+    return {"flash_attention": 2 * n_attn * steps,
+            "flash_attention_bwd": n_attn * steps,
+            "mamba_scan": 2 * n_ssm * steps, "mamba_scan_bwd": n_ssm * steps,
+            "decode_attention": 0, "top2gap": 0}
+
+
+def _grad_check_f32(dev, cfg, s: int, layers: int = TRAIN_CUT) -> dict:
+    """One f32 train step's gradients at full width, cut to ``layers``
     layers (encoder too), batch 1 at the phase's positions, on the card
-    (flash forward and backward kernels) and on the CPU (the plain
-    versions under autograd): every leaf within TRAIN_GRAD_TOL of its
+    (the flash and scan kernels forward and backward) and on the CPU (the
+    plain versions under autograd): every leaf within TRAIN_GRAD_TOL of its
     largest CPU entry, the loss within 1e-5. The attention projections'
-    worst reading is printed apart: a kernel output without a gradient
-    would leave wq, wk and wv with none from attention."""
-    cut = _depth_cut(cfg, TRAIN_CUT)
+    and the SSM's A_log, D and dt_proj worst readings are printed apart: a
+    kernel output without a gradient would leave them with none from it.
+    An MoE model's routes must be the same on both sides, call by call;
+    the smallest top-k router margin of the CPU run is printed, and a
+    route that differs where that margin is under ROUTE_TIE is named as a
+    near-tie."""
+    cut = _depth_cut(cfg, layers)
     p_cpu = model_lib.init_params(cut, seed=1, dtype=torch.float32,
                                   device="cpu")
     batch = _train_batch(cut, 1, s, seed=3)
-    out = []
+    out, routes = [], []
     for p in (p_cpu, tree_lib.tree_map(lambda t: t.detach().to(dev),
                                        p_cpu)):
         pairs, _ = tree_lib.flatten_with_path(p)
@@ -2183,37 +2444,69 @@ def _grad_check_f32(dev, cfg, s: int) -> dict:
             t.requires_grad_(True)
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        loss, _ = model_lib.train_loss(p, cut, batch, remat=True)
-        loss.backward()
+        with _routes() as rec:
+            loss, _ = model_lib.train_loss(p, cut, batch, remat=True)
+            loss.backward()
         if p is not p_cpu:
             torch.cuda.synchronize()
+        routes.append([(i.cpu(), m.detach().cpu()) for i, m in rec])
         out.append((float(loss.detach()), [(path, t.grad.cpu())
                                             for path, t in pairs],
                     K.launch_counts(), time.perf_counter() - t0))
-        del pairs, loss
+        del pairs, loss, rec
     del p_cpu
-    worst, attn = 0.0, 0.0
+    worst = 0.0
+    named = {"attn_proj_grad_rel_err": ("wq", "wk", "wv"),
+             "A_log_grad_rel_err": ("A_log",), "D_grad_rel_err": ("D",),
+             "dt_proj_grad_rel_err": ("dt_proj_w", "dt_proj_b")}
+    apart = {k: 0.0 for k in named}
     for (path, g), (_, r) in zip(out[1][1], out[0][1]):
         rel = float((g - r).abs().max() / max(float(r.abs().max()), 1e-30))
         worst = max(worst, rel)
-        if path[-1] in ("wq", "wk", "wv"):
-            attn = max(attn, rel)
-    n_attn = _attention_layers(cut)
-    row = {"layers": TRAIN_CUT, "positions": s, "loss_cpu": out[0][0],
-           "loss_card": out[1][0], "worst_grad_rel_err": worst,
-           "attn_proj_grad_rel_err": attn, "tol": TRAIN_GRAD_TOL,
-           "launches": out[1][2], "cpu_s": out[0][3], "card_s": out[1][3]}
+        for key, leaves in named.items():
+            if path[-1] in leaves:
+                apart[key] = max(apart[key], rel)
+    want = _train_launches(cut, 1)
+    row = {"layers": layers, "positions": s, "loss_cpu": out[0][0],
+           "loss_card": out[1][0], "worst_grad_rel_err": worst, **apart,
+           "tol": TRAIN_GRAD_TOL, "launches": out[1][2],
+           "cpu_s": out[0][3], "card_s": out[1][3]}
+    if cut.moe is not None:
+        margins = torch.cat([m for _, m in routes[0]])
+        diff, routed = _route_diffs(routes[0], routes[1])
+        near = torch.cat([ma[_set_differs(ia, ib)]
+                          for (ia, ma), (ib, _) in zip(*routes)])
+        row.update(min_router_margin_cpu=float(margins.min()),
+                   route_diffs=diff, tokens_routed=routed,
+                   route_tie=ROUTE_TIE)
+        check(diff == 0, f"{cfg.name} f32 depth-cut routes on the card "
+              f"equal the CPU's: {diff} of {routed} tokens differ"
+              + (f", at router margins down to {float(near.min())}: a "
+                 f"near-tie (under {ROUTE_TIE})"
+                 if diff and float(near.min()) < ROUTE_TIE else ""))
     check(abs(out[1][0] - out[0][0]) <= 1e-5 * abs(out[0][0]),
           f"{cfg.name} f32 depth-cut loss on the card {out[1][0]} == the "
           f"CPU's {out[0][0]}")
     check(worst <= TRAIN_GRAD_TOL,
           f"{cfg.name} f32 depth-cut gradients on the card within "
           f"{TRAIN_GRAD_TOL} of the CPU's ({worst})")
-    check(out[1][2]["flash_attention"] == 2 * n_attn
-          and out[1][2]["flash_attention_bwd"] == n_attn,
-          f"{cfg.name} f32 depth-cut step ran the flash kernels forward, "
-          f"recomputed and backward ({out[1][2]})")
+    check(all(out[1][2][k] == n for k, n in want.items()),
+          f"{cfg.name} f32 depth-cut step ran the kernels forward, "
+          f"recomputed and backward ({out[1][2]} == {want})")
     return row
+
+
+def _op_device_ms(prof, op: str) -> float:
+    """Device ms of the kernels that calls of ``op`` launched in a
+    torch.profiler window (0 where the profiler links none to it)."""
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key == op:
+            t_us = getattr(e, "device_time_total", None)
+            if t_us is None:
+                t_us = e.cuda_time_total
+            total += t_us / 1e3
+    return total
 
 
 def _train_phase(dev, phase: str, arch: str) -> dict:
@@ -2222,19 +2515,28 @@ def _train_phase(dev, phase: str, arch: str) -> dict:
     ``backward()``, AdamW with f32 moments in place; random weights from
     seed 0) on one repeated ``SyntheticDataset`` batch at TRAIN_SHAPES:
     TRAIN_WARM steps, then TRAIN_STEPS timed ones (host wall around a
-    synchronised step, and CUDA events), after ``_grad_check_f32``. The
-    loss must fall and stay finite; launch counters, zeroed just before
-    the timed steps and read just after, must be flash forward =
-    attention layers x steps x 2 (the remat recompute) and backward =
-    attention layers x steps, nothing else. Prints the step's median wall
-    and device ms against 6 x params x tokens (8 x with remat) at the
-    bf16 peak (an encoder's params count over the source positions, the
-    rest over the decoder's), one profiled step's device time by kind,
-    one more step's loss-and-backward and AdamW halves between CUDA
-    events, and the peak memory. Returns the launch counts."""
-    cfg = get_config(arch)
+    synchronised step, and CUDA events), after ``_grad_check_f32`` (at
+    TRAIN_CHECK_LAYERS, by default TRAIN_CUT). A model in TRAIN_LAYERS
+    trains at that depth cut. The loss must fall and stay finite; launch
+    counters, zeroed just before the timed steps and read just after, must
+    be ``_train_launches``: each forward kernel layers x steps x 2 (the
+    remat recompute), each backward kernel layers x steps, nothing else.
+    Prints the step's median wall and device ms against 6 x params x
+    tokens (8 x with remat) at the bf16 peak (an encoder's params count
+    over the source positions, the rest over the decoder's; an MoE
+    model's active params, with the all-expert figure beside), one
+    profiled step's device time by kind (the scan's and flash's forward
+    and backward kernels, the expert products (``aten::bmm``), the other
+    GEMMs, the rest), one more step's loss-and-backward and AdamW halves
+    between CUDA events, and the peak memory beside the 12 B a parameter
+    of params, gradients and moments. Returns the launch counts."""
+    full = get_config(arch)
+    cfg = _depth_cut(full, TRAIN_LAYERS[arch]) if arch in TRAIN_LAYERS \
+        else full
     b, s = TRAIN_SHAPES[arch]
-    gcheck = _grad_check_f32(dev, cfg, s)
+    check_layers = TRAIN_CHECK_LAYERS.get(arch, TRAIN_CUT)
+    gcheck = (_grad_check_f32(dev, full, s, check_layers) if check_layers
+              else None)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2243,9 +2545,17 @@ def _train_phase(dev, phase: str, arch: str) -> dict:
               if cfg.is_encoder_decoder and key in params
               for t in tree_lib.leaves(params[key]))
     n_params = sum(t.numel() for t in tree_lib.leaves(params))
+    # the routed experts' weights: a token reaches top_k of E_pad of them
+    experts = sum(t.numel() for blk in params["blocks"] if "moe" in blk
+                  for key in ("w_gate", "w_up", "w_down")
+                  for t in [blk["moe"][key]])
+    active = n_params - experts + (
+        experts * cfg.moe.top_k // moe_lib.padded_num_experts(cfg.moe)
+        if experts else 0)
     positions = b * s
     src = b * TRAIN_SRC if cfg.is_encoder_decoder else 0
-    pt = (n_params - enc) * positions + enc * src
+    pt = (active - enc) * positions + enc * src
+    pt_all = (n_params - enc) * positions + enc * src
     opt = init_opt_state(params)
     opt_cfg = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
                           decay_steps=100)
@@ -2278,14 +2588,21 @@ def _train_phase(dev, phase: str, arch: str) -> dict:
         torch.cuda.synchronize()
     kernels = _device_kernels(prof, 1)
     busy = sum(k[0] for k in kernels)
-    by_kind = {"flash_bwd": 0.0, "flash_fwd": 0.0, "gemm": 0.0,
+    by_kind = {"flash_bwd": 0.0, "flash_fwd": 0.0, "scan_bwd": 0.0,
+               "scan_fwd": 0.0, "expert_gemm": 0.0, "gemm": 0.0,
                "other": 0.0}
     for ms, _, name in kernels:
         kind = ("flash_bwd" if "flash_bwd" in name else
                 "flash_fwd" if "flash" in name else
+                "scan_bwd" if "mamba_scan_bwd" in name else
+                "scan_fwd" if "mamba_scan" in name else
                 "gemm" if re.search(r"gemm|xmma|nvjet|cutlass", name)
                 else "other")
         by_kind[kind] += ms
+    if experts:
+        by_kind["expert_gemm"] = min(_op_device_ms(prof, "aten::bmm"),
+                                     by_kind["gemm"])
+        by_kind["gemm"] -= by_kind["expert_gemm"]
     del prof
     # the step's two halves on their own, between CUDA events: the loss and
     # its backward pass, then the AdamW update
@@ -2304,25 +2621,29 @@ def _train_phase(dev, phase: str, arch: str) -> dict:
     halves = {"loss_and_backward_event_ms": marks[0].elapsed_time(marks[1]),
               "adamw_event_ms": marks[1].elapsed_time(marks[2])}
     del loss, leaves
-    n_attn = _attention_layers(cfg)
-    expect = {"flash_attention": n_attn * TRAIN_STEPS * 2,
-              "flash_attention_bwd": n_attn * TRAIN_STEPS,
-              "decode_attention": 0, "top2gap": 0, "mamba_scan": 0}
+    expect = _train_launches(cfg, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(wall)
     row = {"phase": phase, "arch": cfg.name, "batch": b, "positions": s,
+           "layers": cfg.num_layers, "full_layers": full.num_layers,
            "source_frames": TRAIN_SRC if cfg.is_encoder_decoder else 0,
            "params": n_params, "encoder_params": enc,
+           "active_params": active,
            "param_state_bytes": 12 * n_params,
-           "grad_check_f32": gcheck, "losses": losses,
+           "grad_check_f32": gcheck or "left out (TRAIN_CHECK_LAYERS)",
+           "losses": losses,
            "grad_norm_last": float(m["grad_norm"]),
            "step_ms": wall, "step_event_ms": event,
            "step_ms_median": step_ms,
            "step_event_ms_median": statistics.median(event),
            "bound_6pt_ms": 6 * pt / BF16_FLOP_PER_S * 1e3,
            "bound_8pt_remat_ms": 8 * pt / BF16_FLOP_PER_S * 1e3,
+           "bound_8pt_remat_all_experts_ms":
+               8 * pt_all / BF16_FLOP_PER_S * 1e3,
            "tokens_per_s": (positions + src) / step_ms * 1e3,
-           "max_memory_allocated_bytes": peak, "launches": launches,
+           "max_memory_allocated_bytes": peak,
+           "peak_over_param_state": peak / (12 * n_params),
+           "launches": launches,
            "expected_launches": expect,
            "profiled_step_device_busy_ms": busy, **halves,
            "profiled_step_kernels": sum(k[1] for k in kernels),
@@ -2379,6 +2700,33 @@ def phase_train_seamless(dev) -> dict:
     return _train_phase(dev, "train_seamless", SEAMLESS_ARCH)
 
 
+def phase_train_falcon_mamba(dev) -> dict:
+    """falcon-mamba-7b at full width (d 4096, d_inner 8192, d_state 16,
+    vocab 65,024) cut to 40 of its 64 layers (4.74 B parameters, 56.9 GB
+    of weights, gradients and moments), B 4 x 512: every layer's scan
+    through the mamba_scan kernel forward and recomputed and
+    mamba_scan_bwd backward. Its f32 check runs 2 layers."""
+    return _train_phase(dev, "train_falcon_mamba", SSM_ARCH)
+
+
+def phase_train_moe(dev) -> dict:
+    """qwen2-moe-a2.7b at full width (d 2048, 16 = 16 KV heads at hd 128,
+    60 routed experts padded to 64, top-4 by softmax, 4 gated shared
+    experts, vocab 151,936) cut to 6 of its 24 layers (4.05 B parameters),
+    B 4 x 512: the flash kernels forward and backward, and the sorted
+    dispatch's gathers and batched expert products under autograd. Its f32
+    check runs 1 layer with the router guard."""
+    return _train_phase(dev, "train_moe", MOE_ARCH)
+
+
+def phase_train_jamba(dev) -> dict:
+    """jamba-v0.1 at full width (d 4096, d_inner 8192, 16 experts of
+    d_ff 14,336, top-2) cut to its first 3 layers (4.02 B parameters):
+    Mamba + dense FFN, Mamba + MoE, Mamba + dense FFN; no attention layer
+    (the first is its 5th). B 4 x 512; no f32 check (TRAIN_CHECK_LAYERS)."""
+    return _train_phase(dev, "train_jamba", JAMBA_ARCH)
+
+
 RESUME_AT, RESUME_K = 2, 2      # steps before the checkpoint, and after
 # Where an op of the path is named nondeterministic, the resumed run is held
 # within RESUME_TOL of the uninterrupted one, every leaf, instead of bit for
@@ -2388,6 +2736,10 @@ RESUME_AT, RESUME_K = 2, 2      # steps before the checkpoint, and after
 # rounds a bf16 param once more (2^-7 at the norms' 1.0, the largest
 # params); the moments move far less than the params.
 RESUME_TOL = RESUME_K * (2 * TRAIN_LR + 2.0 ** -7)
+# the resumed runs: qwen2-0.5b whole, falcon-mamba-7b at full width cut to
+# 2 layers (0.74 B parameters, a 7.4 GB checkpoint: it saves about as fast
+# as qwen2's 4.9 GB); the phase's name and the depth cut
+RESUMED = {ARCH: ("train_resume", None), SSM_ARCH: ("train_resume_ssm", 2)}
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -2399,9 +2751,10 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def _train_resume_child() -> dict:
-    """Save, restore and resume qwen2-0.5b at full width (the train_qwen2
-    shape, RESUME_AT + RESUME_K distinct batches) under
+def _train_resume_child(arch: str) -> dict:
+    """Save, restore and resume ``arch`` at full width (its train phase's
+    shape, at RESUMED's depth cut, RESUME_AT + RESUME_K distinct batches)
+    under
     ``torch.use_deterministic_algorithms(True)``: RESUME_AT steps, a
     ``CheckpointManager`` save into a temporary directory (deleted after),
     RESUME_K more steps; then the checkpoint restored into a zeroed
@@ -2412,8 +2765,11 @@ def _train_resume_child() -> dict:
     within RESUME_TOL instead."""
     import tempfile
     dev = resolve_device("cuda")
-    cfg = get_config(ARCH)
-    b, s = TRAIN_SHAPES[ARCH]
+    phase, layers = RESUMED[arch]
+    cfg = get_config(arch)
+    if layers:
+        cfg = _depth_cut(cfg, layers)
+    b, s = TRAIN_SHAPES[arch]
     ds = SyntheticDataset(cfg, b, s, seed=5)
     batches = [as_batch(ds.next_batch(), dev)
                for _ in range(RESUME_AT + RESUME_K)]
@@ -2464,8 +2820,8 @@ def _train_resume_child() -> dict:
     resumed_equal = all(_same_bits(a, r) for a, r in pairs)
     max_diff = max(float((a.float() - r.float()).abs().max())
                    for a, r in pairs)
-    return {"phase": "train_resume", "arch": cfg.name, "batch": b,
-            "positions": s, "steps_before": RESUME_AT,
+    return {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "batch": b, "positions": s, "steps_before": RESUME_AT,
             "steps_after": RESUME_K, "checkpoint_bytes": ckpt_bytes,
             "save_s": save_s, "restore_s": restore_s,
             "restored_bit_equal": restored_equal,
@@ -2478,16 +2834,17 @@ def _train_resume_child() -> dict:
                 torch.are_deterministic_algorithms_enabled()}
 
 
-def phase_train_resume() -> None:
-    """``_train_resume_child`` in a process of its own (this script with
-    ``--train-resume-child``), which must print its row last and exit 0:
+def phase_train_resume(arch: str) -> None:
+    """``_train_resume_child(arch)`` in a process of its own (this script
+    with ``--train-resume-child ARCH``), which must print its row last and
+    exit 0:
     the restored state bit-equal to the saved one, and the resumed run
     bit-equal to the uninterrupted one (or, where an op was named
     nondeterministic, every leaf within RESUME_TOL of it: no difference is
     allowed without a name)."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--train-resume-child"], cwd=ROOT, env=env,
+                           "--train-resume-child", arch], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=900)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and lines,
@@ -2495,15 +2852,17 @@ def phase_train_resume() -> None:
           f"{proc.stderr[-2000:]}")
     row = json.loads(lines[-1])
     emit(row)
-    check(row["restored_bit_equal"], "the restored state is bit-equal to "
-                                     "the saved one")
+    check(row["restored_bit_equal"], f"{arch}: the restored state is "
+                                     f"bit-equal to the saved one")
     if row["nondeterministic_op"] is None:
-        check(row["resumed_bit_equal"], f"the resumed run is bit-equal to "
+        check(row["resumed_bit_equal"], f"{arch}: the resumed run is "
+              f"bit-equal to "
               f"the uninterrupted one (max diff "
               f"{row['resumed_max_abs_diff']})")
     else:
         check(row["resumed_max_abs_diff"] <= RESUME_TOL,
-              f"the resumed run is within {RESUME_TOL} of the uninterrupted "
+              f"{arch}: the resumed run is within {RESUME_TOL} of the "
+              f"uninterrupted "
               f"one, as {row['nondeterministic_op']!r} is nondeterministic "
               f"(max diff {row['resumed_max_abs_diff']})")
 
@@ -3080,7 +3439,7 @@ def phase_cost_model(traces: dict, qwen3: dict, param_bytes: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 20: the one-shot classifier cascade (train, profile, plan, serve)
+# phase 23: the one-shot classifier cascade (train, profile, plan, serve)
 # ---------------------------------------------------------------------------
 
 class _Recording:
@@ -3350,7 +3709,7 @@ def phase_serve_tiny(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 21: the paper's baselines (Fig. 7 on the DES, real runs on the card)
+# phase 24: the paper's baselines (Fig. 7 on the DES, real runs on the card)
 # ---------------------------------------------------------------------------
 
 def _min_devices(check) -> "int | None":
@@ -3543,7 +3902,7 @@ def phase_serve_baselines(tiny: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 22: two tenants on one shared fleet (MultiTenantServer)
+# phase 25: two tenants on one shared fleet (MultiTenantServer)
 # ---------------------------------------------------------------------------
 
 def phase_serve_tenants(tiny: dict) -> dict:
@@ -3680,11 +4039,15 @@ def main() -> int:
                         ("train_olmo", phase_train_olmo),
                         ("train_danube", phase_train_danube),
                         ("train_internvl", phase_train_internvl),
-                        ("train_seamless", phase_train_seamless)):
+                        ("train_seamless", phase_train_seamless),
+                        ("train_falcon_mamba", phase_train_falcon_mamba),
+                        ("train_moe", phase_train_moe),
+                        ("train_jamba", phase_train_jamba)):
         paths[name] = phase(dev)
         gc.collect()
         torch.cuda.empty_cache()
-    phase_train_resume()
+    for arch in RESUMED:
+        phase_train_resume(arch)
     phase_cost_model({s["trace"]["arch"]: s["trace"]
                       for s in summaries.values()}, summaries["serve_qwen3"],
                      {s["trace"]["arch"]: s["by_stage"][s["trace"]["stage"]]
@@ -3705,7 +4068,15 @@ def main() -> int:
                        "src/repro/kernels/mamba_scan.py:72"),
         "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
                                 "flash_attention_bwd.cu", None),
+        "mamba_scan_bwd": ("src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                           None),
     }
+    notes = {"flash_attention_bwd": "no TPU kernel: stands in for XLA's "
+                                    "derivative of the jnp sdpa / sdpa_gqa "
+                                    "(src/repro/models/attention.py:76-89)",
+             "mamba_scan_bwd": "no TPU kernel: stands in for XLA's "
+                               "derivative of the jnp selective_scan "
+                               "(src/repro/models/mamba.py:75)"}
     rows = []
     for name, (src, replaces) in sources.items():
         t = timed[name]
@@ -3724,10 +4095,7 @@ def main() -> int:
                                                 "max_rel_err",
                                                 "f32_max_rel_err")
                         if key in t},
-                     **({"note": "no TPU kernel: stands in for XLA's "
-                                 "derivative of the jnp sdpa / sdpa_gqa "
-                                 "(src/repro/models/attention.py:76-89)"}
-                        if replaces is None else {}),
+                     **({"note": notes[name]} if name in notes else {}),
                      **{at: {key: t[at][key] for key in (
                          "shape", "max_abs_err", "err_over_tol",
                          "traps_over_tol", "max_rel_err",
@@ -3737,7 +4105,9 @@ def main() -> int:
                         for at in ("at_qwen3", "at_olmo", "at_moe",
                                    "at_jamba", "at_seamless",
                                    "at_seamless_cross", "at_internvl",
-                                   "at_danube", "at_danube_b8")
+                                   "at_danube", "at_danube_b8", "at_s200",
+                                   "at_s1", "at_tail", "at_n4", "at_n8",
+                                   "at_f32_h0", "forward")
                         if at in t}})
     emit({"kernels": rows})
     print(smi, flush=True)
@@ -3751,7 +4121,7 @@ if __name__ == "__main__":
     if not __import__("torch").cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    if sys.argv[1:] == ["--train-resume-child"]:
-        print(json.dumps(_train_resume_child()), flush=True)
+    if sys.argv[1:2] == ["--train-resume-child"]:
+        print(json.dumps(_train_resume_child(sys.argv[2])), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -6,7 +6,10 @@ decode_attention — one-token GQA attention over the model's KV cache
 flash_attention  — causal / windowed prefill attention with GQA
 flash_attention_bwd — its backward (dq, dk, dv), behind the forward's
                    autograd Function; no TPU counterpart
-mamba_scan       — the Mamba-1 selective scan of an SSM prefill
+mamba_scan       — the Mamba-1 selective scan of an SSM prefill or
+                   training step
+mamba_scan_bwd   — its backward (ddt, dA, dB, dC, dD, dx, dh0), behind
+                   the forward's autograd Function; no TPU counterpart
 
 Each wrapper runs its plain version (``ref``) for a CPU tensor and its
 kernel for a CUDA tensor, and counts the kernel's launches in its
@@ -33,6 +36,7 @@ WRAPPERS = {
     "flash_attention": _flash.flash_attention,
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "mamba_scan": _mamba.mamba_scan,
+    "mamba_scan_bwd": _mamba.mamba_scan_bwd,
 }
 
 

@@ -66,13 +66,14 @@ def reset(wrappers) -> None:
 def forward_only(name: str, *tensors) -> None:
     """Raise where a kernel without a backward would be launched on
     inputs that autograd is tracking: its output would carry no
-    ``grad_fn`` and the gradient would be lost without a word. Training
-    through it on the card waits for its backward (ROADMAP, queue 1,
-    item 2)."""
+    ``grad_fn`` and the gradient would be lost without a word. Only the
+    serving kernels ``decode_attention`` and ``top2gap`` call it; no
+    training path reaches them (``flash_attention`` and ``mamba_scan``
+    have backward kernels)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, and an input "
-            f"requires grad; call it under torch.no_grad(), or train on "
-            f"the CPU, where the plain version differentiates (a backward "
-            f"kernel is ROADMAP queue 1, item 2)")
+            f"requires grad; it serves only (decoding, certainty gaps), so "
+            f"call it under torch.no_grad(), or run on the CPU, where the "
+            f"plain version differentiates")

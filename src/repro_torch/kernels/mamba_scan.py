@@ -1,12 +1,20 @@
 """Mamba-1 selective scan (port of ``repro/kernels/mamba_scan.py:22-110``;
-CUDA kernel in ``csrc/mamba_scan.cu``).
+CUDA kernel in ``csrc/mamba_scan.cu``), and its gradient
+(``csrc/mamba_scan_bwd.cu``).
 
 The wrapper takes the Pallas kernel's operands plus an optional initial
 state and returns the output and the last state, which the model's prefill
 keeps as its SSM cache. On a CPU tensor it runs the plain version
-(``ref.mamba_scan_ref``); on a CUDA tensor it launches the kernel or raises
-(also where an input requires grad: the kernel has no backward,
-``counts.forward_only``).
+(``ref.mamba_scan_ref``), which autograd differentiates; on a CUDA tensor
+it launches the kernel or raises.
+
+Gradients: where grad mode is on and an input requires grad, a CUDA call
+goes through ``_MambaScan`` (a ``torch.autograd.Function``): its forward
+is the same kernel launch, and its backward launches ``mamba_scan_bwd``
+(no TPU counterpart: the JAX model differentiates its jnp scan), counted
+on its own wrapper. Every other CUDA call launches the forward alone, as
+serving always has. Under activation recomputation a block's forward runs
+again in the backward pass, and that launch is counted like any other.
 The decode step is a single recurrence and needs no kernel
 (``models/mamba.py`` ``mamba_decode``).
 """
@@ -19,12 +27,16 @@ import torch
 
 from repro_torch.kernels import build, counts, ref
 
-__all__ = ["mamba_scan", "STATE_SIZES"]
+__all__ = ["mamba_scan", "mamba_scan_bwd", "STATE_SIZES"]
 
 STATE_SIZES = (4, 8, 16)   # d_state values the kernel is instantiated for
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
          + (ctypes.c_longlong,) * 8 + (ctypes.c_int, ctypes.c_void_p))
+_BWD_ARGS = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 4
+             + (ctypes.c_longlong,) * 10 + (ctypes.c_int, ctypes.c_void_p))
+_CHUNK = 32    # steps per chunk of the backward (kChunk)
+_CH = 32       # channels per block of the backward (kCh)
 
 
 def _steps_strides(t: torch.Tensor, name: str, shape) -> Tuple[int, int]:
@@ -45,12 +57,25 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt (B, S, Di) f32, a (Di, N) f32 (already ``-exp(A_log)``), b/c
     (B, S, N) f32, d_vec (Di,) f32, x (B, S, Di) f32 or bf16, h0 (B, Di, N)
-    f32 or None (zero state) -> (y (B, S, Di) f32, h_last (B, Di, N) f32)."""
+    f32 or None (zero state) -> (y (B, S, Di) f32, h_last (B, Di, N) f32).
+    Differentiable on both devices (see the module docstring)."""
     if x.device.type == "cpu":
         return ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
-    counts.forward_only("mamba_scan", dt, a, b_mat, c_mat, d_vec, x, h0)
+    strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (dt, a, b_mat, c_mat, d_vec, x, h0)):
+        return _MambaScan.apply(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
+    return _forward(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
+
+
+def _check(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+           c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
+           h0: Optional[torch.Tensor]) -> Tuple[int, ...]:
+    """Raise on what the CUDA kernels do not take; returns dt's, b's, c's
+    and x's (batch, step) strides."""
     if x.dim() != 3 or a.dim() != 2:
         raise ValueError("mamba_scan: x must be (B, S, Di) and a (Di, N)")
     bsz, s, d_inner = x.shape
@@ -68,10 +93,10 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         raise TypeError("mamba_scan: dt, a, b, c, d and h0 must be float32")
     if any(t.device != x.device for t in tensors):
         raise ValueError("mamba_scan: tensors on different devices")
-    dt_s = _steps_strides(dt, "dt", (bsz, s, d_inner))
-    b_s = _steps_strides(b_mat, "b", (bsz, s, n))
-    c_s = _steps_strides(c_mat, "c", (bsz, s, n))
-    x_s = _steps_strides(x, "x", (bsz, s, d_inner))
+    strides = (_steps_strides(dt, "dt", (bsz, s, d_inner))
+               + _steps_strides(b_mat, "b", (bsz, s, n))
+               + _steps_strides(c_mat, "c", (bsz, s, n))
+               + _steps_strides(x, "x", (bsz, s, d_inner)))
     if tuple(a.shape) != (d_inner, n) or tuple(d_vec.shape) != (d_inner,):
         raise ValueError("mamba_scan: a must be (Di, N) and d (Di,)")
     if h0 is not None and tuple(h0.shape) != (bsz, d_inner, n):
@@ -79,6 +104,17 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     if not all(t.is_contiguous() for t in (a, d_vec) + (
             () if h0 is None else (h0,))):
         raise ValueError("mamba_scan: a, d and h0 must be contiguous")
+    return strides
+
+
+def _forward(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
+             h0: Optional[torch.Tensor], strides: Tuple[int, ...]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel on CUDA tensors that ``_check``
+    passed (``strides``: what it returned)."""
+    bsz, s, d_inner = x.shape
+    n = a.shape[1]
     y = torch.empty((bsz, s, d_inner), dtype=torch.float32, device=x.device)
     h_last = torch.empty((bsz, d_inner, n), dtype=torch.float32,
                          device=x.device)
@@ -86,8 +122,8 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     rc = fn(dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             d_vec.data_ptr(), x.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), bsz, s, d_inner, n, *dt_s, *b_s, *c_s, *x_s,
-            _X_DTYPES[x.dtype],
+            h_last.data_ptr(), bsz, s, d_inner, n,
+            *strides, _X_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "mamba_scan")
     counts.launched(mamba_scan)
@@ -95,3 +131,88 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
 
 
 mamba_scan.launches = 0
+
+
+class _MambaScan(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, dt, a, b_mat, c_mat, d_vec, x, h0, strides):
+        y, h_last = _forward(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
+        ctx.save_for_backward(dt, a, b_mat, c_mat, d_vec, x, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, a, b_mat, c_mat, d_vec, x, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        ddt, da, db, dc, dd, dx, dh0 = mamba_scan_bwd(
+            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last)
+        return ddt, da, db, dc, dd, dx, dh0, None
+
+
+def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
+                   h0: Optional[torch.Tensor], dy: torch.Tensor,
+                   dh_last: Optional[torch.Tensor] = None
+                   ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of ``mamba_scan(dt, a, b_mat, c_mat, d_vec, x, h0)`` =
+    (y, h_last) against dy (B, S, Di) f32 and dh_last (B, Di, N) f32 (None:
+    zero): (ddt, da, db, dc, dd, dx, dh0) in the inputs' shapes, dx in x's
+    dtype and the rest f32, dh0 None where h0 is None. On a CPU tensor it
+    runs the plain version (``ref.mamba_scan_bwd_ref``); on a CUDA tensor
+    it launches ``csrc/mamba_scan_bwd.cu`` (two kernels, counted as one
+    launch) or raises."""
+    if x.device.type == "cpu":
+        return ref.mamba_scan_bwd_ref(dt, a, b_mat, c_mat, d_vec, x, h0, dy,
+                                      dh_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_scan_bwd: unsupported device {x.device}")
+    strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
+    bsz, s, d_inner = x.shape
+    n = a.shape[1]
+    if dh_last is not None and tuple(dh_last.shape) != (bsz, d_inner, n):
+        raise ValueError(f"mamba_scan_bwd: dh_last must be "
+                         f"{(bsz, d_inner, n)}")
+    if any(t is not None and (t.dtype != torch.float32
+                              or t.device != x.device)
+           for t in (dy, dh_last)):
+        raise TypeError("mamba_scan_bwd: dy and dh_last must be float32 "
+                        "on x's device")
+    # autograd may hand over a gradient in any layout
+    if dy.dim() == 3 and dy.stride(2) != 1:
+        dy = dy.contiguous()
+    dy_s = _steps_strides(dy, "dy", (bsz, s, d_inner))
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ddt = torch.empty((bsz, s, d_inner), **f32)
+    dx = torch.empty((bsz, s, d_inner), dtype=x.dtype, device=x.device)
+    da = torch.empty((d_inner, n), **f32)
+    db = torch.empty((bsz, s, n), **f32)
+    dc = torch.empty((bsz, s, n), **f32)
+    dd = torch.empty((d_inner,), **f32)
+    dh0 = None if h0 is None else torch.empty((bsz, d_inner, n), **f32)
+    # scratch: the state entering each chunk, and the per-block partials
+    ckpt = torch.empty((bsz, -(-s // _CHUNK), d_inner, n), **f32)
+    part_bc = torch.empty((2, bsz, -(-d_inner // _CH), s, n), **f32)
+    part_ad = torch.empty((bsz, d_inner * (n + 1)), **f32)
+    fn = build.function("mamba_scan_bwd", "mamba_scan_bwd_launch", _BWD_ARGS)
+    rc = fn(dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            d_vec.data_ptr(), x.data_ptr(),
+            None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            dd.data_ptr(), dx.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), ckpt.data_ptr(),
+            part_bc.data_ptr(), part_ad.data_ptr(), bsz, s, d_inner, n,
+            *strides, *dy_s, _X_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "mamba_scan_bwd")
+    counts.launched(mamba_scan_bwd)
+    return ddt, da, db, dc, dd, dx, dh0
+
+
+mamba_scan_bwd.launches = 0

@@ -19,6 +19,10 @@ upcasts, in the model's layouts:
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
                              the output and the last state;
+* ``mamba_scan_bwd_ref``   — its gradient as an explicit reverse
+                             recurrence, the math the backward kernel
+                             runs; no TPU counterpart (the JAX package
+                             differentiates its jnp ``selective_scan``);
 * ``flash_attention_bwd_ref`` — the gradient of ``flash_attention_ref``
                              (dq, dk, dv) by autograd through it in f32,
                              optionally with D = dO . o read from the o
@@ -40,7 +44,7 @@ import torch
 NEG_INF = -1e30
 
 __all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "mamba_scan_ref"]
+           "flash_attention_bwd_ref", "mamba_scan_ref", "mamba_scan_bwd_ref"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -159,11 +163,12 @@ def mamba_scan_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     (B, S, N) f32, d_vec (Di,), x (B, S, Di) any float dtype, h0 (B, Di, N)
     f32 or None (zeros). Per step: ``h = exp(dt_t a) h + (dt_t x_t) B_t``,
     ``y_t = h C_t``. Returns (y (B, S, Di) f32 with ``D x`` added,
-    h_last (B, Di, N) f32)."""
+    h_last (B, Di, N) f32). Float64 inputs run in float64."""
     bsz, s, d_inner = x.shape
-    h = (torch.zeros(bsz, d_inner, a.shape[-1], dtype=torch.float32,
-                     device=x.device) if h0 is None else h0.float())
-    xf = x.float()
+    wt = torch.promote_types(dt.dtype, torch.float32)
+    h = (torch.zeros(bsz, d_inner, a.shape[-1], dtype=wt, device=x.device)
+         if h0 is None else h0.to(wt))
+    xf = x.to(wt)
     ys = []
     for t in range(s):
         dt_t = dt[:, t]
@@ -171,3 +176,57 @@ def mamba_scan_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         h = da * h + (dt_t * xf[:, t])[..., None] * b_mat[:, t, None, :]
         ys.append(torch.einsum("bin,bn->bi", h, c_mat[:, t]))
     return torch.stack(ys, dim=1) + xf * d_vec, h
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                       c_mat: torch.Tensor, d_vec: torch.Tensor,
+                       x: torch.Tensor, h0: Optional[torch.Tensor],
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)``
+    = (y, h_last) against dy (B, S, Di) and dh_last (B, Di, N) (None:
+    zero), as the explicit reverse recurrence the backward kernel runs, in
+    f32 (float64 inputs: float64). With g_t = dL/dh_t and e_t =
+    exp(dt_t a):
+
+        g_t   = dy_t C_t + e_{t+1} g_{t+1}     (g_S's carry is dh_last)
+        dC_t  = sum_d dy_t h_t                 dB_t = sum_d g_t dt_t x_t
+        dx_t  = dt_t sum_n g_t B_t + D dy_t
+        ddt_t = sum_n g_t (a e_t h_{t-1} + B_t x_t)
+        da    = sum_{b,t} g_t dt_t e_t h_{t-1}  dD = sum_{b,t} dy_t x_t
+        dh0   = e_1 g_1
+
+    Returns (ddt (B, S, Di), da (Di, N), db (B, S, N), dc (B, S, N), dd
+    (Di,), dx (B, S, Di) in x's dtype, dh0 (B, Di, N) or None where h0 is
+    None)."""
+    bsz, s, d_inner = x.shape
+    n = a.shape[-1]
+    wt = torch.promote_types(dt.dtype, torch.float32)
+    dt, a, b_mat, c_mat, d_vec = (t.to(wt) for t in (dt, a, b_mat, c_mat,
+                                                       d_vec))
+    xf, dyf = x.to(wt), dy.to(wt)
+    h = (torch.zeros(bsz, d_inner, n, dtype=wt, device=x.device)
+         if h0 is None else h0.to(wt))
+    hs = [h]                                  # h_{t-1} for t = 0 .. S
+    for t in range(s):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * xf[:, t])[..., None] * b_mat[:, t, None, :])
+        hs.append(h)
+    carry = (torch.zeros_like(h) if dh_last is None else dh_last.to(wt))
+    ddt, db, dc, dx = (torch.empty(bsz, s, w, dtype=wt, device=x.device)
+                       for w in (d_inner, n, n, d_inner))
+    da = torch.zeros(d_inner, n, dtype=wt, device=x.device)
+    for t in reversed(range(s)):
+        e = torch.exp(dt[:, t, :, None] * a)
+        g = dyf[:, t, :, None] * c_mat[:, t, None, :] + carry
+        dc[:, t] = torch.einsum("bin,bi->bn", hs[t + 1], dyf[:, t])
+        db[:, t] = torch.einsum("bin,bi->bn", g, dt[:, t] * xf[:, t])
+        dx[:, t] = (dt[:, t] * torch.einsum("bin,bn->bi", g, b_mat[:, t])
+                    + d_vec * dyf[:, t])
+        ddt[:, t] = (g * (a * e * hs[t] + b_mat[:, t, None, :]
+                          * xf[:, t, :, None])).sum(-1)
+        da += (g * dt[:, t, :, None] * e * hs[t]).sum(0)
+        carry = e * g
+    dd = (dyf * xf).sum((0, 1))
+    return (ddt, da, db, dc, dd, dx.to(x.dtype),
+            None if h0 is None else carry)

@@ -93,11 +93,17 @@ class LayerSpec:
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
+    """The layer specs of one period of the block pattern. A depth cut
+    shorter than one period (jamba-v0.1 cut to its first 3 layers, which
+    fit one card for training) is its own pattern, one rep deep: the
+    period's first ``num_layers`` positions. The JAX package refuses such
+    a cut, as it refuses any depth that the period does not divide."""
     period = 1
     if cfg.hybrid is not None:
         period = math.lcm(period, cfg.hybrid.attn_every_n)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe.moe_every_n)
+    period = min(period, cfg.num_layers)
     if cfg.num_layers % period != 0:
         raise ValueError(
             f"{cfg.name}: num_layers={cfg.num_layers} not divisible by the "

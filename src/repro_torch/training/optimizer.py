@@ -5,7 +5,12 @@ update math runs in float32 and casts back, as the reference does. Where
 the reference returns new trees, ``adamw_update`` runs under
 ``torch.no_grad()`` and writes the new params and moments IN PLACE into
 the tensors it is given (and returns those same trees), so that the card
-never holds two copies of the weights. The reference's
+never holds two copies of the weights. A leaf of more than ``SLICE``
+elements (a rep-stacked projection of a large model: falcon-mamba-7b's
+``in_proj`` at 40 layers holds 2.7 G) is updated, and its share of the
+gradient norm summed, one flat slice at a time, so the float32
+temporaries of the update stay near a GiB whatever the leaf's size; each
+element's update is the same arithmetic either way. The reference's
 ``opt_state_pspecs`` (ZeRO-1 sharding over the pod axis) waits for the
 distributed port.
 """
@@ -64,9 +69,27 @@ def init_opt_state(params: Pytree) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+SLICE = 1 << 26   # elements of a leaf updated together
+
+
+def _slices(*ts: torch.Tensor):
+    """Same-shaped tensors cut into aligned flat slices of at most SLICE
+    elements (views; written in place through them), or whole where they
+    are small or not all contiguous."""
+    if ts[0].numel() <= SLICE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, ts[0].numel(), SLICE):
+        yield tuple(f[i:i + SLICE] for f in flat)
+
+
 def global_norm(tree: Pytree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(l.float()))
-              for l in tree_lib.leaves(tree)]
+    leaves = []
+    for leaf in tree_lib.leaves(tree):
+        parts = [torch.sum(torch.square(s.float())) for (s,) in _slices(leaf)]
+        leaves.append(parts[0] if len(parts) == 1
+                      else torch.sum(torch.stack(parts)))
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -105,15 +128,18 @@ def adamw_update(params: Pytree, grads: Pytree, state: Dict[str, Any],
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("adamw_update: params, grads and moments differ "
                          "in structure")
-    for (path, p), g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        gf = g.float() * clip
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
-        del gf
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.float()
-        if _is_decayable(path):
-            update = update + cfg.weight_decay * pf
-        p.copy_(pf - lr * update)
+    for (path, p_leaf), g_leaf, m_leaf, v_leaf in zip(flat_p, flat_g,
+                                                      flat_m, flat_v):
+        decay = _is_decayable(path)
+        for p, g, m, v in _slices(p_leaf, g_leaf, m_leaf, v_leaf):
+            gf = g.float() * clip
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
+            del gf
+            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            pf = p.float()
+            if decay:
+                update = update + cfg.weight_decay * pf
+            p.copy_(pf - lr * update)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

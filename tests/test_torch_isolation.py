@@ -3,8 +3,9 @@ move to the CPU.
 
 * In a fresh interpreter, importing every ``repro_torch`` module (the
   baselines, admission, scenarios, fleet, MoE and training modules among
-  them) and ``chip_smoke`` leaves neither ``jax`` (nor ``jaxlib``) nor any
-  ``repro`` module in ``sys.modules``.
+  them) and ``chip_smoke``, then a training step of the launcher on each
+  of the SSM, MoE and hybrid arch ids, leaves neither ``jax`` (nor
+  ``jaxlib``) nor any ``repro`` module in ``sys.modules``.
 * The entry points default to ``device="cuda"``: without a CUDA device they
   raise instead of running on the CPU.
 """
@@ -31,6 +32,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+# the train launcher on the SSM, MoE and hybrid arch ids (one CPU step)
+import contextlib, io
+from repro_torch.launch import train
+for arch in ('falcon-mamba-7b', 'qwen2-moe-a2.7b', 'jamba-v0.1-52b'):
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(['--arch', arch, '--smoke', '--device', 'cpu',
+                    '--steps', '1', '--batch', '1', '--seq', '8'])
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 # the numpy layers copied last must be among the modules imported above

@@ -33,7 +33,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
 from repro_torch.kernels.top2gap import argmax_gap, top2gap
 from repro_torch.models import model as TM
 from repro_torch.serving import engine as TE
@@ -1207,40 +1207,207 @@ def test_flash_attention_bwd_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_forward_only_kernels_raise_under_grad_on_the_card(cuda):
-    """decode_attention, top2gap and mamba_scan have no backward kernel:
-    on CUDA inputs that require grad (grad mode on) each raises instead of
-    returning an output without a grad_fn; under no_grad each launches."""
+    """decode_attention and top2gap have no backward kernel (they only
+    serve): on CUDA inputs that require grad (grad mode on) each raises
+    instead of returning an output without a grad_fn; under no_grad each
+    launches. mamba_scan differentiates (the next test)."""
     q = torch.zeros(2, 4, 64, device=cuda, requires_grad=True)
     kc = torch.zeros(2, 16, 2, 64, device=cuda)
     s = torch.zeros(2, 100, device=cuda, requires_grad=True)
-    dt = torch.full((1, 5, 64), 0.1, device=cuda, requires_grad=True)
-    a, bc = -torch.ones(64, 16, device=cuda), torch.ones(1, 5, 16,
-                                                        device=cuda)
-    x, dv = torch.ones(1, 5, 64, device=cuda), torch.ones(64, device=cuda)
-    before = {f: f.launches for f in (decode_attention, top2gap, mamba_scan)}
+    before = {f: f.launches for f in (decode_attention, top2gap)}
     for call in (lambda: decode_attention(q, kc, kc, 8),
-                 lambda: top2gap(s),
-                 lambda: mamba_scan(dt, a, bc, bc, dv, x)):
+                 lambda: top2gap(s)):
         with pytest.raises(RuntimeError, match="no backward"):
             call()
     assert all(f.launches == n for f, n in before.items())
     with torch.no_grad():
         decode_attention(q, kc, kc, 8)
         top2gap(s)
-        mamba_scan(dt, a, bc, bc, dv, x)
     torch.cuda.synchronize()
     assert all(f.launches == n + 1 for f, n in before.items())
 
 
+def test_mamba_scan_gradient_flows_on_the_card(cuda):
+    """Under grad the scan goes through its autograd Function: one forward
+    launch, and backward() launches mamba_scan_bwd once; every input's
+    gradient (dt, a, B, C, D, x, h0) within 1e-5 of its largest entry in
+    the plain recurrence. Under no_grad the forward launches alone and its
+    output has no grad_fn."""
+    b, s, di, n = 2, 45, 96, 16
+    f = lambda seed, shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        _rand(seed, shape, scale)).to(cuda)
+    ins = [torch.nn.functional.softplus(f(1, (b, s, di), 0.5) - 3.0),
+           -torch.exp(f(2, (di, n), 0.5)), f(3, (b, s, n)), f(4, (b, s, n)),
+           f(5, (di,)), f(6, (b, s, di)), f(7, (b, di, n))]
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    dy, dh = f(8, (b, s, di)), f(9, (b, di, n))
+    f0, b0 = mamba_scan.launches, mamba_scan_bwd.launches
+    y, h = mamba_scan(*leaves)
+    assert y.grad_fn is not None and mamba_scan.launches == f0 + 1
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == b0 + 1
+    refs = tref.mamba_scan_bwd_ref(*ins, dy, dh)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+    with torch.no_grad():
+        assert mamba_scan(*leaves)[0].grad_fn is None
+    assert mamba_scan_bwd.launches == b0 + 1
+
+
+def _scan_bwd_case(cuda, b, s, di, n, x_dtype, with_h0, with_dh, seed=0):
+    f = lambda k, shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        _rand(seed + k, shape, scale)).to(cuda)
+    return (torch.nn.functional.softplus(f(1, (b, s, di), 0.5) - 3.0),
+            -torch.exp(f(2, (di, n), 0.5)), f(3, (b, s, n)), f(4, (b, s, n)),
+            f(5, (di,)), f(6, (b, s, di)).to(x_dtype),
+            f(7, (b, di, n)) if with_h0 else None, f(8, (b, s, di)),
+            f(9, (b, di, n)) if with_dh else None)
+
+
+def _held_scan_bwd(got, ins, x_dtype):
+    """Every gradient within 1e-5 of its largest entry in the f32 plain
+    recurrence (on the same bf16-valued x), a bf16 dx also within 2^-8 of
+    its value (the kernel's f32 dx rounded once)."""
+    want = tref.mamba_scan_bwd_ref(*ins[:5], ins[5].float(), *ins[6:])
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        tol = 1e-5 * float(w.abs().max()) + 1e-30
+        if i == 5:
+            assert g.dtype == x_dtype
+            if x_dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -8 * w.abs()
+        assert bool(((g.float() - w).abs() <= tol).all()), i
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("b,s,di", [(1, 1, 64), (2, 31, 33), (1, 32, 96),
+                                    (2, 33, 70), (1, 200, 512),
+                                    (2, 77, 1000), (4, 512, 256)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
+                                             with_h0):
+    """The backward kernel against the plain reverse recurrence at every
+    N: S of one step, one short of, at and one past the kernel's 32-step
+    chunks, a tail chunk of 13 and 16 whole chunks; Di one past and short
+    of a block's 32 channels and a tail of 8; x in f32 and bf16; with and
+    without h0 (and dh_last with it): one launch each."""
+    ins = _scan_bwd_case(cuda, b, s, di, n, x_dtype, with_h0, with_h0)
+    before = mamba_scan_bwd.launches
+    got = mamba_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + 1
+    _held_scan_bwd(got, ins, x_dtype)
+
+
+def test_mamba_scan_bwd_kernel_is_deterministic(cuda):
+    """Two calls on the same inputs give the same bits (no atomics: the
+    partial sums over channels, batch and steps add in a fixed order)."""
+    ins = _scan_bwd_case(cuda, 4, 300, 2048, 16, torch.bfloat16, True, True)
+    one, two = mamba_scan_bwd(*ins), mamba_scan_bwd(*ins)
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if b.dtype == torch.bfloat16
+                           else b.view(torch.int32))
+
+
+def test_mamba_scan_bwd_kernel_reads_strided_operands(cuda):
+    """B and C as column slices of one projection, dt and x as views at
+    odd offsets and step strides, dy transposed from another layout: the
+    kernel reads them by strides (dy is made contiguous when its last axis
+    is not)."""
+    b, s, di, n, r = 2, 70, 96, 16, 8
+    f = lambda seed, shape: torch.from_numpy(  # noqa: E731
+        _rand(seed, shape)).to(cuda)
+    dbc = f(1, (b, s, r + 2 * n))
+    dt = f(2, (b, s, di + 3)).abs().mul_(0.05)[..., 1:di + 1]
+    x = f(3, (b, s, di + 5))[..., 3:di + 3]
+    a = -torch.exp(f(4, (di, n)) * 0.5)
+    d = f(5, (di,))
+    dy = f(6, (b, di, s)).transpose(1, 2)
+    bm, cm = dbc[..., r:r + n], dbc[..., r + n:]
+    got = mamba_scan_bwd(dt, a, bm, cm, d, x, None, dy)
+    _held_scan_bwd(got, (dt, a, bm, cm, d, x, None, dy.contiguous(), None),
+                   torch.float32)
+
+
+def test_mamba_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    ins = list(_scan_bwd_case(cuda, 1, 8, 32, 16, torch.float32, True,
+                              True))
+    before = mamba_scan_bwd.launches
+    with pytest.raises(ValueError):                  # dy's shape
+        mamba_scan_bwd(*ins[:7], ins[7][:, :4], ins[8])
+    with pytest.raises(TypeError):                   # dy must be f32
+        mamba_scan_bwd(*ins[:7], ins[7].bfloat16(), ins[8])
+    with pytest.raises(ValueError):                  # dh_last's shape
+        mamba_scan_bwd(*ins[:8], ins[8][:, :16])
+    with pytest.raises(ValueError):                  # d_state 32
+        mamba_scan_bwd(ins[0], torch.zeros(32, 32, device=cuda),
+                       torch.zeros(1, 8, 32, device=cuda),
+                       torch.zeros(1, 8, 32, device=cuda), *ins[4:6], None,
+                       ins[7])
+    with pytest.raises(TypeError):                   # x f32 or bf16
+        mamba_scan_bwd(*ins[:5], ins[5].half(), *ins[6:])
+    assert mamba_scan_bwd.launches == before
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
+def test_launcher_smoke_resume_on_card(cuda, arch, tmp_path, capsys,
+                                       monkeypatch):
+    """``launch.train --smoke`` on the card for the SSM, MoE and hybrid
+    models: 6 steps with a checkpoint at 3, against 3 steps and then
+    ``--resume`` to 6, under deterministic algorithms: the step-6
+    checkpoints are equal leaf for leaf, bit for bit, and the scan and
+    flash backward kernels ran."""
+    import repro_torch.launch.train as train_cli
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    common = ["--arch", arch, "--smoke", "--batch", "2", "--seq", "32",
+              "--device", "cuda", "--ckpt-every", "3", "--log-every", "3"]
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launch_counts()
+        train_cli.main(common + ["--steps", "6", "--ckpt-dir",
+                                 str(tmp_path / "a")])
+        counts = launch_counts()
+        train_cli.main(common + ["--steps", "3", "--ckpt-dir",
+                                 str(tmp_path / "b")])
+        train_cli.main(common + ["--steps", "6", "--ckpt-dir",
+                                 str(tmp_path / "b"), "--resume"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = capsys.readouterr().out
+    assert "resumed from step 3" in out and "device" in out
+    cfg = get_smoke_config(arch)
+    ssm = sum(s.mixer == "ssm" for s in TM.block_pattern(cfg)) \
+        * TM.num_reps(cfg)
+    assert counts["mamba_scan_bwd"] == 6 * ssm
+    assert counts["flash_attention_bwd"] == 6 * (cfg.num_layers - ssm)
+    a = np.load(tmp_path / "a" / "step_000000006" / "arrays.npz")
+    b = np.load(tmp_path / "b" / "step_000000006" / "arrays.npz")
+    assert sorted(a.files) == sorted(b.files) and len(a.files) > 10
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmo-1b", "h2o-danube-1.8b",
-                                  "internvl2-1b", "seamless-m4t-large-v2"])
+                                  "internvl2-1b", "seamless-m4t-large-v2",
+                                  "falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
 @pytest.mark.parametrize("remat", [False, True])
 def test_smoke_train_step_on_card_matches_cpu(cuda, arch, remat):
     """One train step at smoke size in f32: the loss and every gradient
     on the card (the flash kernels forward and backward) within 1e-4 of
     each leaf's largest CPU entry, and the parameters after AdamW within
     what the gradients' difference moves them; flash launches = attention
-    layers x (1 + remat), backward launches = attention layers."""
+    layers x (1 + remat), backward launches = attention layers, and the
+    same for the scan over the Mamba layers (SSM and hybrid models)."""
     from repro_torch import tree as tree_lib
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.training import AdamWConfig, adamw_update, \
@@ -1258,7 +1425,10 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch, remat):
         batch["prefix_embeddings"] = _rand(
             7, (2, cfg.frontend.num_prefix_embeddings,
                 cfg.frontend.frontend_dim))
-    layers = cfg.num_layers      # self attention; enc-dec: + cross
+    # self attention (enc-dec: + the encoder's and cross), and Mamba
+    ssm = sum(s.mixer == "ssm" for s in TM.block_pattern(cfg)) \
+        * TM.num_reps(cfg)
+    layers = cfg.num_layers - ssm
     if cfg.is_encoder_decoder:
         layers = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers
     out = []
@@ -1287,3 +1457,6 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch, remat):
     assert out[0][3]["flash_attention"] == 0
     assert out[1][3]["flash_attention"] == layers * (2 if remat else 1)
     assert out[1][3]["flash_attention_bwd"] == layers
+    assert out[0][3]["mamba_scan"] == 0
+    assert out[1][3]["mamba_scan"] == ssm * (2 if remat else 1)
+    assert out[1][3]["mamba_scan_bwd"] == ssm

@@ -13,6 +13,9 @@ machine: ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
   output within 1e-4 of the CPU's (other summation orders over 2048-14336
   terms, TF32 off), the same experts chosen, and two card calls
   bit-equal (the dispatch and the combine use no atomics).
+* Its backward at T 8 and 200 in f32 against the CPU's (1e-4 of each
+  gradient's largest entry), and under deterministic algorithms twice,
+  bit-equal, in f32 and bf16.
 * A smoke qwen2-0.5b → qwen2-moe-a2.7b cascade served on the card, fused
   at spec_k 4: each stage's ``compile_counts()`` equals the CPU run's, and
   the tokens equal the CPU run's up to the first step whose CPU top-2 gap
@@ -104,6 +107,58 @@ def test_apply_moe_local_on_card_matches_cpu(cuda, full_width_moe, t):
     dest, _ = TMOE._dispatch_indices(idx_gpu, e_pad, cap)
     dest_cpu, _ = TMOE._dispatch_indices(idx_cpu, e_pad, cap)
     assert torch.equal(dest.cpu(), dest_cpu)
+
+
+def _moe_grads(p, cfg, x, dy):
+    """d sum(dy * apply_moe_local(p, x)[0] + aux) / d (every param, x)."""
+    leaves = [p[k] for k in ("router", "w_gate", "w_up", "w_down")]
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves] + [
+        x.detach().clone().requires_grad_(True)]
+    q = dict(p, router=leaves[0], w_gate=leaves[1], w_up=leaves[2],
+             w_down=leaves[3])
+    y, aux = TMOE.apply_moe_local(q, cfg, leaves[4])
+    ((y * dy).sum() + aux).backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("t", [8, 200])
+def test_apply_moe_local_backward_on_card(cuda, full_width_moe, t,
+                                          monkeypatch):
+    """The MoE FFN's backward on the card (the sorted dispatch's gathers
+    and scatter, the batched expert products, the router's softmax and
+    top-k): in f32 every gradient within 1e-4 of its largest CPU entry,
+    the same experts routed; and under ``torch.use_deterministic_algorithms``
+    (cuBLAS's workspace set as it needs) the backward runs, no op refusing,
+    and two calls agree bit for bit, in f32 and in bf16."""
+    cfg, p_cpu = full_width_moe
+    rng = np.random.default_rng(t + 1)
+    x = torch.from_numpy(rng.standard_normal((t, cfg.d_model))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((t, cfg.d_model))
+                          .astype(np.float32))
+    assert _router_gap(p_cpu, cfg.moe, x) > ROUTER_NEAR
+    want = _moe_grads(p_cpu, cfg, x, dy)
+    p_gpu = _to(p_cpu, cuda)
+    got = _moe_grads(p_gpu, cfg, x.to(cuda), dy.to(cuda))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            p_d = {k: v.to(dtype) if k != "router" else v
+                   for k, v in p_gpu.items() if k != "shared"}
+            if "shared" in p_gpu:
+                p_d["shared"] = {k: v.to(dtype)
+                                 for k, v in p_gpu["shared"].items()}
+            runs = [_moe_grads(p_d, cfg, x.to(cuda, dtype), dy.to(cuda, dtype))
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            for a, b in zip(*runs):
+                assert torch.equal(a, b), dtype
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def _cascade_params(dev):

@@ -497,12 +497,15 @@ def test_compress_pod_grads_is_refused():
                       remat_policy="most")
 
 
-def test_launcher_resume_continues_the_run_bit_for_bit(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
+                                  "qwen2-moe-a2.7b"])
+def test_launcher_resume_continues_the_run_bit_for_bit(tmp_path, capsys,
+                                                       arch):
     """``launch.train`` for 6 steps with a checkpoint at 3, against 3
     steps, then ``--resume`` to 6: the step-6 checkpoints are equal, leaf
-    for leaf and bit for bit."""
+    for leaf and bit for bit (attention, SSM and MoE smoke models)."""
     import repro_torch.launch.train as train_cli
-    common = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "2", "--seq",
+    common = ["--arch", arch, "--smoke", "--batch", "2", "--seq",
               "16", "--device", "cpu", "--ckpt-every", "3",
               "--log-every", "3"]
     train_cli.main(common + ["--steps", "6", "--ckpt-dir",
@@ -518,3 +521,35 @@ def test_launcher_resume_continues_the_run_bit_for_bit(tmp_path, capsys):
     assert sorted(a.files) == sorted(b.files) and len(a.files) > 10
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_adamw_slices_a_large_leaf_bit_for_bit(monkeypatch):
+    """A leaf of more than ``SLICE`` elements is updated one flat slice at
+    a time (views, in place): the params and moments equal the whole-leaf
+    update bit for bit, and the gradient norm (summed slice by slice) is
+    within f32 rounding of the whole-leaf one."""
+    from repro_torch.training import optimizer as opt_lib
+    rng = np.random.default_rng(9)
+    params = {"w": torch.from_numpy(rng.standard_normal((5, 7, 3))
+                                    .astype(np.float32)).bfloat16(),
+              "scale": torch.from_numpy(rng.standard_normal(11)
+                                        .astype(np.float32))}
+    grads = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape))
+                                 .astype(np.float32)).to(v.dtype)
+             for k, v in params.items()}
+    cfg = AdamWConfig(learning_rate=1e-2, warmup_steps=0)
+    runs = []
+    for slice_ in (opt_lib.SLICE, 16):
+        monkeypatch.setattr(opt_lib, "SLICE", slice_)
+        p = {k: v.clone() for k, v in params.items()}
+        state = init_opt_state(p)
+        for _ in range(2):
+            p, state, m = adamw_update(p, grads, state, cfg)
+        runs.append((p, state, m))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for k in params:
+        assert torch.equal(p1[k], p2[k])
+        assert torch.equal(s1["m"][k], s2["m"][k])
+        assert torch.equal(s1["v"][k], s2["v"][k])
+    assert float(m2["grad_norm"]) == pytest.approx(float(m1["grad_norm"]),
+                                                   rel=1e-6)
