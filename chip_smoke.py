@@ -280,6 +280,33 @@ launch counts include graph replays.
              offered = done + shed, cascade semantics, span conservation
              (none open), ``dump_metrics``'s three files written, top2gap
              launched once per executed batch.
+26-28. dist_serve, dist_moe, dist_train — the distributed layer
+             (``repro_torch.distributed``, ``launch/mesh``, ``launch/steps``)
+             on one card: one NCCL process group of one rank, meshes of
+             size 1 (after train_resume), so no collective is called and
+             each process's blocks are the whole tensors. dist_serve:
+             qwen2-0.5b at full width
+             and depth through ``launch/steps`` on a (1, 1) mesh with
+             ``flash_decode``, DTensor params, B 8 x 64-token prompts and
+             16 greedy steps: tokens and gaps bit-equal to the mesh-less
+             calls (or the differing op named). dist_moe: qwen2-moe-a2.7b
+             at full depth, bf16, one ``forward`` with every MoE layer
+             through ``apply_moe_ep``, logits bit-equal to
+             ``apply_moe_local``'s. dist_train: ``launch/train.py --mesh
+             1x1x1 --compress-pod-grads`` on qwen2-0.5b (B 8 x 512, 2 warm
+             and 5 timed steps; the loss falls; step device ms and peak
+             memory beside train_qwen2's), and its first step's own int8
+             exchange within half a quantisation step (at world 1 a
+             quantisation check).
+             Launch counters around each run, as each path's formula.
+             The kernel phase also holds the decode kernel's log-sum-exp
+             form (qwen2's and qwen3's shapes, the default output
+             bit-equal, an empty row 0 and -inf), the n-shard flash-decode
+             (n 2, 4, 8 over qwen2's cache, empty shards included; one
+             shard's rescale dropped rejected) and the flash forward and
+             backward with ``q_offset`` (qwen2's training shape in 4 query
+             chunks: outputs and dq bit-equal to the unchunked slices, an
+             offset one late rejected).
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -349,6 +376,7 @@ SSM_BF16_MARGIN = 0.5     # bf16 teacher-forced margin on the SSM path
 F32_GAP_TOL = 1e-3        # f32 decode vs forward gaps (summation order)
 ATTN_TOL = 2e-2           # bf16 kernel vs the f32 plain version
 F32_ATTN_TOL = 1e-5       # f32 kernel vs the f32 plain version (cuda tests)
+LSE_TOL = 1e-4            # the decode kernel's f32 LSE vs the plain version
 # ... and each bf16 element within _bf16_tol of it: the kernel's own bf16
 # roundings, at most 2^-8 relative each; P's rounding (flash only) is held
 # to P_ROUND_SIGMAS times its scale
@@ -454,6 +482,8 @@ TENANTS = "interactive:latency:0.3:600:2,batch:latency:1.0:600:1"
 
 
 CARD = ""   # the nvidia-smi name and power limit, set by phase_device
+Q_OFFSET: dict = {}   # the flash q_offset rows (forward, backward)
+TRAIN_ROWS: dict = {}   # each train phase's line, by phase
 
 
 def emit(obj) -> None:
@@ -786,6 +816,137 @@ def _check_decode_f32(dev, b, h, kv, d, c, vl, seed) -> float:
     return worst
 
 
+def _time_decode_lse(dev, b, h, kv, d, c, vl, seed) -> dict:
+    """The decode kernel's log-sum-exp form at one shape (bf16 cache, valid
+    lengths ``vl``, an empty row included): its output bit-equal to a call
+    without the LSE, held to ``_bf16_tol`` of the f32 plain version, and
+    its (B, H) f32 LSE within LSE_TOL of the plain version's (-inf exactly
+    where a row has no valid key). Timed beside the plain version (with
+    its LSE) and SDPA; the bound adds the LSE's bytes to the decode's."""
+    g = _gen(seed)
+
+    def make():
+        return (torch.randn(b, h, d, generator=g, device=dev).bfloat16(),
+                torch.randn(b, c, kv, d, generator=g, device=dev).bfloat16(),
+                torch.randn(b, c, kv, d, generator=g, device=dev).bfloat16())
+
+    q, k, v = make()
+    out, lse = decode_attention(q, k, v, vl, return_lse=True)
+    plain = decode_attention(q, k, v, vl)
+    rout, rlse = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                          vl, return_lse=True)
+    torch.cuda.synchronize()
+    what = f"decode_attention LSE form B={b} H={h} KV={kv} hd={d} C={c}"
+    check(torch.equal(out, plain), f"{what}: output bit-equal to a call "
+                                   f"without the LSE")
+    ratio = _held(out, rout, _bf16_tol(rout), what)
+    empty = rlse == -math.inf
+    check(bool(torch.equal(lse == -math.inf, empty)),
+          f"{what}: LSE -inf exactly on the rows with no valid key")
+    check(bool((out[vl == 0] == 0).all()), f"{what}: empty rows give 0")
+    lse_err = float((lse[~empty] - rlse[~empty]).abs().max())
+    check(lse_err <= LSE_TOL, f"{what}: LSE within {LSE_TOL} ({lse_err})")
+    n_valid = int(vl.sum())
+    nbytes = 2 * b * h * d * 2 + 2 * n_valid * kv * d * 2 + b * 4 + b * h * 4
+    sets = [make() for _ in range(copies(nbytes))]
+    mask = (torch.arange(c, device=dev)[None, :] < vl[:, None])[:, None,
+                                                                None, :]
+    kms = device_ms([lambda t=t: decode_attention(*t, vl, return_lse=True)
+                     for t in sets])
+    pms = device_ms([lambda t=t: ref.decode_attention_ref(
+        *t, vl, return_lse=True) for t in sets])
+    lms = device_ms([lambda t=t: F.scaled_dot_product_attention(
+        t[0][:, :, None], t[1].transpose(1, 2), t[2].transpose(1, 2),
+        attn_mask=mask, enable_gqa=True) for t in sets])
+    bms, by = bound(nbytes, 4 * h * d * n_valid, BF16_FLOP_PER_S)
+    return dict(shape=f"B={b} H={h} KV={kv} hd={d} C={c} bf16 LSE form "
+                      f"valid_len={vl.tolist()}",
+                max_abs_err=float((out.float() - rout).abs().max()),
+                err_over_tol=ratio, lse_max_abs_err=lse_err, ms=kms,
+                plain_ms=pms, library_ms=lms,
+                library="F.scaled_dot_product_attention(enable_gqa)",
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                bound_flops=4 * h * d * n_valid)
+
+
+def _time_decode_shards(dev, n, b, h, kv, d, c, ci, seed) -> dict:
+    """The sharded flash-decode run as n cache shards in turn on one card:
+    each chunk of C / n slots through ``_flash_decode_shard`` (its slot
+    write and the decode kernel's LSE form over its valid slots; chunks
+    past a row's position are empty), the partials merged by
+    ``_combine_partials`` over a leading shard dim. Held to ``_bf16_tol``
+    of the f32 plain version of one write + decode, and within twice it of
+    the unsplit kernel; a combine with one shard's rescale dropped must
+    fail the limit. Timed (the n launches and the combine) beside the
+    unsplit kernel, the plain version and SDPA over the same cache."""
+    from repro_torch.models import attention as attn_lib
+    g = _gen(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev).bfloat16()
+    kn, vn = (torch.randn(b, kv, d, generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    kc, vc = (torch.randn(b, c, kv, d, generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    rows = torch.arange(b, device=dev)
+    k1, v1 = kc.clone(), vc.clone()
+    k1[rows, ci], v1[rows, ci] = kn, vn
+    rout = ref.decode_attention_ref(q.float(), k1.float(), v1.float(),
+                                    ci + 1)
+    unsplit = decode_attention(q, k1, v1, ci + 1)
+    chunk = c // n
+
+    def sharded():
+        outs, lses = [], []
+        for r in range(n):
+            o, l_ = attn_lib._flash_decode_shard(
+                q, kn, vn, kc[:, r * chunk:(r + 1) * chunk],
+                vc[:, r * chunk:(r + 1) * chunk], ci, r * chunk)
+            outs.append(o)
+            lses.append(l_)
+        outs, lses = torch.stack(outs), torch.stack(lses)
+        return outs, lses, attn_lib._combine_partials(
+            outs, lses, lambda t: t.amax(0), lambda t: t.sum(0)).to(q.dtype)
+
+    outs, lses, out = sharded()
+    torch.cuda.synchronize()
+    what = f"flash-decode over {n} shards B={b} H={h} KV={kv} hd={d} C={c}"
+    check(torch.equal(kc, k1) and torch.equal(vc, v1),
+          f"{what}: each row's slot written in its own shard")
+    check(bool(torch.isfinite(out).all()), f"{what}: finite (empty shards)")
+    tol = _bf16_tol(rout)
+    ratio = _held(out, rout, tol, what)
+    vs_unsplit = float(((out.float() - unsplit.float()).abs() / tol).max())
+    check(vs_unsplit <= 2.0, f"{what}: within twice the limit of the "
+                             f"unsplit kernel ({vs_unsplit})")
+    w = torch.exp(lses - lses.amax(0))
+    worst = int(torch.argmin(torch.where(torch.isinf(lses), 2.0, w)
+                             .amin((1, 2))))
+    w[worst] = torch.where(torch.isinf(lses[worst]), 0.0, 1.0)
+    trap = (outs * w[..., None]).sum(0) / w.sum(0)[..., None]
+    traps = _traps_rejected(rout, tol, {
+        f"shard {worst}'s rescale dropped": trap}, what)
+    empty = int((lses == -math.inf).any(-1).sum())
+    n_valid = int((ci + 1).sum())
+    nbytes = 2 * b * h * d * 2 + 2 * n_valid * kv * d * 2 + b * 4
+    kms = device_ms([lambda: sharded()])
+    ums = device_ms([lambda: decode_attention(q, kc, vc, ci + 1)])
+    pms = device_ms([lambda: ref.decode_attention_ref(q, kc, vc, ci + 1)])
+    mask = (torch.arange(c, device=dev)[None, :] <= ci[:, None])[:, None,
+                                                                 None, :]
+    lms = device_ms([lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)])
+    bms, by = bound(nbytes, 4 * h * d * n_valid, BF16_FLOP_PER_S)
+    return dict(shape=f"{n} shards of B={b} H={h} KV={kv} hd={d} C={c} "
+                      f"bf16, positions {ci.tolist()}",
+                max_abs_err=float((out.float() - rout).abs().max()),
+                err_over_tol=ratio, vs_unsplit_over_tol=vs_unsplit,
+                traps_over_tol=traps, empty_shard_rows=empty, ms=kms,
+                unsplit_ms=ums, plain_ms=pms, library_ms=lms,
+                library="F.scaled_dot_product_attention(enable_gqa)",
+                bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                bound_flops=4 * h * d * n_valid)
+
+
 def kernel_decode(dev) -> dict:
     """At qwen2-0.5b's shape (H 14, KV 2, hd 64; the row's shape) and at
     qwen3-32b's (H 64, KV 8, hd 128: a group of 8, the kernel's most), B 8,
@@ -832,11 +993,21 @@ def kernel_decode(dev) -> dict:
               _check_decode_f32(dev, 1, 32, 8, 80, ring, ring_vl, seed=26),
               _check_decode_f32(dev, SEAMLESS_B, 16, 16, 64, SEAMLESS_SRC,
                                 cross_vl, seed=27))
-    rows = (qwen2, qwen3, olmo, moe, jamba, seamless, danube, danube_b8)
+    lse_vl = torch.cat([vl[:-1], torch.zeros(1, dtype=torch.int32,
+                                             device=dev)])
+    lse = _time_decode_lse(dev, N_SLOTS, 14, 2, 64, MAX_LEN, lse_vl, seed=70)
+    lse_qwen3 = _time_decode_lse(dev, N_SLOTS, 64, 8, 128, MAX_LEN, lse_vl,
+                                 seed=71)
+    shards = {n: _time_decode_shards(dev, n, N_SLOTS, 14, 2, 64, MAX_LEN,
+                                     vl - 1, seed=72 + n) for n in (2, 4, 8)}
+    rows = (qwen2, qwen3, olmo, moe, jamba, seamless, danube, danube_b8,
+            lse, lse_qwen3, *shards.values())
     row = dict(name="decode_attention", **qwen2, at_qwen3=qwen3,
                at_olmo=olmo, at_moe=moe, at_jamba=jamba,
                at_seamless=seamless, at_danube=danube,
-               at_danube_b8=danube_b8, f32_max_abs_err=f32)
+               at_danube_b8=danube_b8, at_lse=lse, at_lse_qwen3=lse_qwen3,
+               **{f"at_shards_n{n}": r for n, r in shards.items()},
+               f32_max_abs_err=f32)
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     row["err_over_tol"] = max(r["err_over_tol"] for r in rows)
     return row
@@ -925,6 +1096,116 @@ def _time_flash(dev, b, sq, sk, h, kv, d, causal, window, seed,
                 bound_flops=flops)
 
 
+def _time_flash_q_offset(dev) -> tuple:
+    """The flash forward and backward with ``q_offset`` at qwen2-0.5b's
+    training shape (B 8, S 512, H 14 over KV 2, hd 64, causal, bf16) in 4
+    query chunks of 128, each over the keys up to its end, as the
+    sequence-parallel attention runs them: each chunk's output and dq
+    bit-equal to the slices of the unchunked kernels' (the same key tiles
+    in the same order), the output also within ``_bf16_tol`` of the f32
+    plain version; the chunks' dk and dv summed within the bf16 roundings
+    (2^-8 of each chunk's and of the whole's magnitudes) plus BWD_F32_TOL
+    of the unchunked backward's; the plain version with the offset one
+    position late must fail the forward's limit. The last chunk is timed
+    (forward, then backward) beside its plain version and SDPA with the
+    chunk's causal mask. Returns (forward row, backward row)."""
+    b, s, h, kv, d, n = 8, 512, 14, 2, 64, 4
+    c = s // n
+    g = _gen(80)
+    q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, kv, d, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    whole = flash_attention(q, k, v)
+    dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, whole, do)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rout = ref.flash_attention_ref(qf, kf, vf)
+    tol = _bf16_tol(rout, _flash_nu(qf, kf, vf, True, 0))
+    what = f"flash_attention q_offset chunks B={b} S={s} H={h} KV={kv} hd={d}"
+    dk_s, dv_s = torch.zeros_like(kf), torch.zeros_like(vf)
+    dk_a, dv_a = torch.zeros_like(kf), torch.zeros_like(vf)
+    ratio = err = 0.0
+    chunks = []
+    for r in range(n):
+        end = (r + 1) * c
+        qc, doc = q[:, r * c:end].contiguous(), do[:, r * c:end].contiguous()
+        part = flash_attention(qc, k[:, :end], v[:, :end], q_offset=r * c)
+        dq, dk, dv = flash_attention_bwd(qc, k[:, :end], v[:, :end], part,
+                                         doc, q_offset=r * c)
+        torch.cuda.synchronize()
+        check(torch.equal(part, whole[:, r * c:end]),
+              f"{what}: chunk {r}'s output bit-equal to the slice")
+        check(torch.equal(dq, dq_w[:, r * c:end]),
+              f"{what}: chunk {r}'s dq bit-equal to the slice")
+        ratio = max(ratio, _held(part, rout[:, r * c:end],
+                                 tol[:, r * c:end], what))
+        err = max(err, float((part.float() - rout[:, r * c:end]).abs()
+                             .max()))
+        dk_s[:, :end] += dk.float()
+        dv_s[:, :end] += dv.float()
+        dk_a[:, :end] += dk.float().abs()
+        dv_a[:, :end] += dv.float().abs()
+        chunks.append((qc, doc, part))
+    bwd_ratio = bwd_err = 0.0
+    for got, want, mag in ((dk_s, dk_w, dk_a), (dv_s, dv_w, dv_a)):
+        lim = (mag + want.float().abs()) * 2.0 ** -8 \
+            + BWD_F32_TOL * float(want.float().abs().max())
+        bwd_err = max(bwd_err, float((got - want.float()).abs().max()))
+        bwd_ratio = max(bwd_ratio, float(((got - want.float()).abs() / lim)
+                                         .max()))
+    check(bwd_ratio <= 1.0, f"{what}: dk, dv summed over the chunks within "
+                            f"the bf16 roundings ({bwd_ratio})")
+    end = 2 * c
+    traps = _traps_rejected(rout[:, c:end], tol[:, c:end], {
+        "the offset one position late": ref.flash_attention_ref(
+            qf[:, c:end], kf[:, :end + 1], vf[:, :end + 1],
+            q_offset=c + 1)}, what)
+    del rout, tol, qf, kf, vf, dk_s, dv_s, dk_a, dv_a
+    qc, doc, part = chunks[-1]
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= torch.arange(s - c, s, device=dev)[:, None])
+    pairs = int(mask.sum())
+    nbytes = 2 * (2 * b * c * h * d + 2 * b * s * kv * d)
+    fms = device_ms([lambda: flash_attention(qc, k, v, q_offset=s - c)])
+    fpms = device_ms([lambda: ref.flash_attention_ref(qc, k, v,
+                                                      q_offset=s - c)],
+                     reps=3, per_window=4)
+    flms = device_ms([lambda: F.scaled_dot_product_attention(
+        qc.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)])
+    bms, by = bound(nbytes, 4 * d * b * h * pairs, BF16_FLOP_PER_S)
+    shape = f"chunk 4 of 4: B={b} Sq={c} Sk={s} q_offset={s - c} H={h} " \
+            f"KV={kv} hd={d} causal bf16"
+    # the chunks' outputs against the f32 plain version (the unchunked
+    # kernel's are the same bits); the chunks' summed dk, dv against the
+    # unchunked kernel's
+    fwd = dict(shape=shape, max_abs_err=err, err_over_tol=ratio,
+               traps_over_tol=traps, ms=fms, plain_ms=fpms, library_ms=flms,
+               library="F.scaled_dot_product_attention(chunk mask, "
+                       "enable_gqa)", bound_ms=bms, bound_by=by,
+               bound_bytes=nbytes, bound_flops=4 * d * b * h * pairs)
+    bbytes = 2 * (3 * b * c * h * d + 2 * b * s * kv * d) \
+        + 2 * (b * c * h * d + 2 * b * s * kv * d)
+    kms = device_ms([lambda: flash_attention_bwd(qc, k, v, part, doc,
+                                                 q_offset=s - c)])
+    pms = device_ms([lambda: ref.flash_attention_bwd_ref(
+        qc, k, v, part, doc, q_offset=s - c)], reps=3, per_window=2)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (qc, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             enable_gqa=True)
+    lms = device_ms([lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), doc.transpose(1, 2), retain_graph=True)])
+    bbms, bby = bound(bbytes, 10 * d * b * h * pairs, BF16_FLOP_PER_S)
+    bwd = dict(shape=shape, max_abs_err=bwd_err, err_over_tol=bwd_ratio,
+               ms=kms,
+               plain_ms=pms, library_ms=lms,
+               library="backward of F.scaled_dot_product_attention(chunk "
+                       "mask, enable_gqa)", bound_ms=bbms, bound_by=bby,
+               bound_bytes=bbytes, bound_flops=10 * d * b * h * pairs)
+    return fwd, bwd
+
+
 def kernel_flash(dev) -> dict:
     """Causal bf16: qwen2-0.5b's heads (H 14, KV 2, hd 64) at B 8, S 256
     (the row's shape) and at S 64, the most common prefill bucket;
@@ -989,7 +1270,9 @@ def kernel_flash(dev) -> dict:
                          80, True, get_config(DANUBE_ARCH).sliding_window,
                          seed=23, traps=True)
     rows = (*timed.values(), seamless, cross, internvl, danube)
+    Q_OFFSET["fwd"], Q_OFFSET["bwd"] = _time_flash_q_offset(dev)
     row = dict(name="flash_attention", **timed[N_SLOTS, 256, 14],
+               at_q_offset=Q_OFFSET["fwd"],
                at_s64=timed[N_SLOTS, 64, 14],
                at_qwen3=timed[N_SLOTS, 256, 64],
                at_olmo=timed[OLMO_BATCH, olmo_s, 16],
@@ -1222,7 +1505,8 @@ def kernel_flash_bwd(dev) -> dict:
                                             seed=46),
     }
     row = dict(name="flash_attention_bwd", **rows["qwen2"],
-               **{f"at_{k}": r for k, r in rows.items() if k != "qwen2"})
+               **{f"at_{k}": r for k, r in rows.items() if k != "qwen2"},
+               at_q_offset=Q_OFFSET["bwd"])
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     row["err_over_tol"] = max(r["err_over_tol"] for r in rows.values())
     for key in ("max_rel_err", "f32_max_rel_err"):
@@ -2652,6 +2936,7 @@ def _train_phase(dev, phase: str, arch: str) -> dict:
            "top_kernels": [{"ms": t, "launches": c, "kernel": name[:90]}
                            for t, c, name in kernels[:8]]}
     row["mfu_6pt"] = row["bound_6pt_ms"] / row["step_event_ms_median"]
+    TRAIN_ROWS[phase] = row
     emit(row)
     check(all(math.isfinite(x) for x in losses), f"{phase} losses finite")
     check(losses[-1] < losses[0], f"{phase} loss falls ({losses[0]} -> "
@@ -4011,6 +4296,270 @@ def phase_serve_tenants(tiny: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 26-28: the distributed layer over NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+DIST_PROMPT, DIST_STEPS = 64, 16     # dist_serve: B 8 prompts, greedy steps
+DIST_MOE_SHAPE = (4, 128)            # dist_moe: B x S of one forward
+DIST_TRAIN_STEPS, DIST_TRAIN_WARM = 7, 2
+
+
+def _dist_start(dev) -> None:
+    """One process group of one rank over NCCL on the card (a free local
+    port), as the launchers' processes join theirs."""
+    import socket
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=dev)
+
+
+def _serve_greedy(params, cfg, prompts, ctx):
+    """Prefill and DIST_STEPS greedy decode steps through ``launch/steps``
+    under ``ctx`` (None: mesh-less). Returns (tokens (steps + 1, B), gaps
+    (steps + 1, B), wall ms per decode step)."""
+    from repro_torch.distributed.context import use_context
+    from repro_torch.launch import steps
+    prefill = steps.make_serve_prefill(cfg, DIST_PROMPT + DIST_STEPS)
+    decode = steps.make_serve_decode(cfg)
+    with use_context(ctx):
+        pred, cert, cache = prefill(params, {"tokens": prompts})
+        toks, gaps, ms = [pred], [cert], []
+        for t in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, cert, cache = decode(params, cache, pred[:, None],
+                                       DIST_PROMPT + t)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(pred)
+            gaps.append(cert)
+    return torch.stack(toks), torch.stack(gaps), ms
+
+
+def phase_dist_serve(dev) -> dict:
+    """qwen2-0.5b at full width and depth (random bf16 weights, seed 0)
+    served through ``launch/steps`` on a (1, 1) ('data', 'model') mesh over
+    NCCL with ``flash_decode``: params as DTensors placed by the serve
+    rules, the model on their blocks (``local_params``: at world 1 the
+    whole tensors, and no collective is called), the cache in the
+    flash-decode layout, each decode layer through
+    ``decode_attention_sharded`` (``_flash_decode_shard`` +
+    ``_combine_partials``). B 8 prompts of DIST_PROMPT tokens, then
+    DIST_STEPS greedy steps: tokens and gaps bit-equal to the mesh-less
+    calls of the same steps on plain params (if not, the op that differs
+    is named: the embedding, the prefill's logits or the first decode
+    step's). Launch counters zeroed just before the mesh run and read just
+    after: flash = layers, decode = layers x steps, top2gap = steps + 1."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import context_for_mesh, make_mesh
+    _dist_start(dev)
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (N_SLOTS, DIST_PROMPT),
+                            generator=_gen(90), device=dev)
+    ctx = context_for_mesh(make_mesh((1, 1), ("data", "model"), "cuda"),
+                           flash_decode=True)
+    dparams = sh.param_shardings(params, ctx, mode="serve")
+    plain = _serve_greedy(params, cfg, prompts, None)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    meshed = _serve_greedy(dparams, cfg, prompts, ctx)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    same = (torch.equal(plain[0], meshed[0]), torch.equal(plain[1],
+                                                           meshed[1]))
+    differs = None
+    if not all(same):
+        from repro_torch.distributed.context import use_context
+        with use_context(ctx), torch.no_grad():
+            emb = common.embed_tokens(sh.local_params(dparams)["embed"],
+                                      prompts, cfg.vocab_size)
+            lp, _ = model_lib.prefill(dparams, cfg, {"tokens": prompts})
+        with torch.no_grad():
+            lq, _ = model_lib.prefill(params, cfg, {"tokens": prompts})
+        differs = ("the embedding" if not torch.equal(
+            emb, params["embed"]["embedding"][prompts]) else
+            "the prefill's logits" if not torch.equal(lp, lq)
+            else "the first decode step's logits (flash-decode attention)")
+    layers = cfg.num_layers
+    emit({"phase": "dist_serve", "arch": cfg.name, "mesh": "(1, 1) nccl",
+          "batch": N_SLOTS, "prompt": DIST_PROMPT, "steps": DIST_STEPS,
+          "tokens_equal": same[0], "gaps_equal": same[1],
+          "differs_at": differs,
+          "decode_step_ms_median": statistics.median(meshed[2]),
+          "meshless_decode_step_ms_median": statistics.median(plain[2]),
+          "launches": launches})
+    check(all(same), f"dist_serve tokens and gaps bit-equal to the "
+                     f"mesh-less calls (first difference: {differs})")
+    for name, want in (("flash_attention", layers),
+                       ("decode_attention", layers * DIST_STEPS),
+                       ("top2gap", DIST_STEPS + 1)):
+        check(launches[name] == want,
+              f"dist_serve {name} launches {launches[name]} == {want}")
+    del params, dparams
+    return launches
+
+
+def phase_dist_moe(dev) -> dict:
+    """qwen2-moe-a2.7b at full depth (24 layers, 60 experts padded to 64,
+    bf16, seed 0), one ``forward`` of B x S random tokens with ``use_ep``
+    on a (1, 1) mesh over NCCL, params as DTensors placed by the serve
+    rules: every MoE layer through ``apply_moe_ep`` (at world 1 its
+    capacity and dispatch are the local path's, and its collectives the
+    identity: no NCCL call), logits bit-equal to the mesh-less
+    ``forward`` (``apply_moe_local``). Launch counters around the mesh
+    run: flash = layers."""
+    from repro_torch.distributed.context import use_context
+    from repro_torch.launch.mesh import context_for_mesh, make_mesh
+    _dist_start(dev)
+    cfg = get_config(MOE_ARCH)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    b, s = DIST_MOE_SHAPE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=_gen(91), device=dev)}
+    ctx = context_for_mesh(make_mesh((1, 1), ("data", "model"), "cuda"))
+    from repro_torch.distributed import sharding as sh
+    dparams = sh.param_shardings(params, ctx, mode="serve")
+    calls = []
+    ep = moe_lib.apply_moe_ep
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return ep(*a, **kw)
+    with torch.no_grad():
+        local, _ = model_lib.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        moe_lib.apply_moe_ep = counted
+        try:
+            with use_context(ctx):
+                t0 = time.perf_counter()
+                meshed, _ = model_lib.forward(dparams, cfg, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe_lib.apply_moe_ep = ep
+    launches = K.launch_counts()
+    same = torch.equal(local, meshed)
+    emit({"phase": "dist_moe", "arch": cfg.name, "mesh": "(1, 1) nccl",
+          "batch": b, "positions": s, "ep_layers": len(calls),
+          "logits_equal": same,
+          "max_abs_diff": float((local - meshed).abs().max()),
+          "forward_ms": ms, "launches": launches})
+    check(len(calls) == cfg.num_layers, f"dist_moe: every MoE layer "
+                                        f"expert-parallel ({len(calls)})")
+    check(same, "dist_moe logits bit-equal to apply_moe_local's forward")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"dist_moe flash launches {launches['flash_attention']}")
+    del params, dparams, local, meshed
+    return launches
+
+
+def phase_dist_train(dev) -> dict:
+    """qwen2-0.5b at full width through ``launch/train.py --mesh 1x1x1
+    --compress-pod-grads`` (B 8 x 512, NCCL at world 1; params and ZeRO-1
+    moments as DTensors): DIST_TRAIN_WARM warm and the rest timed steps
+    (the launcher's device ms per step), the loss falling, the peak memory,
+    both beside this run's ``train_qwen2`` row. Launch counters around the
+    launcher's run: each kernel as ``_train_launches``. At world 1 no NCCL
+    collective is called (every axis has one process). The first step's
+    own exchange (``compressed_pod_allreduce``, read as it runs) is a
+    quantisation check there: each leaf's f32 mean within half a
+    quantisation step (scale / 2) of the gradient it was given, and its
+    cast to the gradient's dtype within that plus half the dtype's
+    rounding."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training import train_step as ts
+    _dist_start(dev)
+    cfg = get_config(ARCH)
+    b, s = TRAIN_SHAPES[ARCH]
+    worst = worst_cast = 0.0
+    exchange = ts.compressed_pod_allreduce
+    seen = []
+
+    def checked(grads, pod_axis="pod", axes=None):
+        nonlocal worst, worst_cast
+        sent_all = exchange(grads, pod_axis, axes)
+        if seen:
+            return sent_all
+        seen.append(len(grads))
+        with torch.no_grad():
+            for g, sent, a in zip(grads, sent_all, axes or [()] * len(grads)):
+                q, scale = ts.quantize_int8(g, a)
+                mean = ts.dequantize_mean(q[None], scale.reshape(1))
+                # half a step, and the two f32 roundings of g / scale and
+                # q x scale (2^-24 of |g| each)
+                worst = max(worst, float(((mean - g.float()).abs()
+                                          / (scale / 2 + 2.0 ** -23
+                                             * g.float().abs())).max()))
+                half_ulp = (sent.float().abs() * 2.0 ** -8 if g.dtype
+                            == torch.bfloat16 else 0.0)
+                worst_cast = max(worst_cast, float(
+                    ((sent.float() - g.float()).abs()
+                     / (scale / 2 + half_ulp + 2.0 ** -23 * g.float().abs()
+                        + 1e-30)).max()))
+        return sent_all
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = io.StringIO()
+    ts.compressed_pod_allreduce = checked
+    try:
+        with contextlib.redirect_stdout(out):
+            train_launch.main(["--arch", ARCH, "--steps",
+                               str(DIST_TRAIN_STEPS), "--batch", str(b),
+                               "--seq", str(s), "--log-every", "1",
+                               "--mesh", "1x1x1", "--compress-pod-grads"])
+    finally:
+        ts.compressed_pod_allreduce = exchange
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lines = [ln for ln in out.getvalue().splitlines() if "loss=" in ln]
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+    dev_ms = [float(ln.split("device ")[1].split("ms")[0]) for ln in lines]
+    timed = dev_ms[DIST_TRAIN_WARM:]
+    ref_row = TRAIN_ROWS.get("train_qwen2", {})
+    expect = _train_launches(cfg, DIST_TRAIN_STEPS)
+    emit({"phase": "dist_train", "arch": cfg.name,
+          "mesh": "(1, 1, 1) pod x data x model, nccl",
+          "compress_pod_grads": True, "batch": b, "positions": s,
+          "losses": losses, "step_device_ms": dev_ms,
+          "step_device_ms_median": statistics.median(timed),
+          "max_memory_allocated_bytes": peak,
+          "exchange_leaves_checked": seen[0] if seen else 0,
+          "exchange_err_over_half_step": worst,
+          "exchange_cast_err_over_limit": worst_cast,
+          "train_qwen2_step_event_ms_median":
+              ref_row.get("step_event_ms_median"),
+          "train_qwen2_max_memory_allocated_bytes":
+              ref_row.get("max_memory_allocated_bytes"),
+          "launches": launches, "expected_launches": expect})
+    check(len(losses) == DIST_TRAIN_STEPS, f"dist_train logged every step "
+                                           f"({len(losses)})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"dist_train loss falls ({losses[0]} -> {losses[-1]})")
+    check(bool(seen), "dist_train's step ran the int8 exchange")
+    check(worst <= 1.0, f"dist_train exchanged gradients within half a "
+                        f"step ({worst})")
+    check(worst_cast <= 1.0, f"dist_train exchanged gradients in their "
+                             f"dtype within the limit ({worst_cast})")
+    for name, want in expect.items():
+        check(launches[name] == want,
+              f"dist_train {name} launches {launches[name]} == {want}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     smi = phase_device()
@@ -4048,6 +4597,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     for arch in RESUMED:
         phase_train_resume(arch)
+    # the launcher's run ends the process group, so dist_train goes last
+    for name, phase in (("dist_serve", phase_dist_serve),
+                        ("dist_moe", phase_dist_moe),
+                        ("dist_train", phase_dist_train)):
+        paths[name] = phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     phase_cost_model({s["trace"]["arch"]: s["trace"]
                       for s in summaries.values()}, summaries["serve_qwen3"],
                      {s["trace"]["arch"]: s["by_stage"][s["trace"]["stage"]]
@@ -4103,6 +4659,9 @@ def main() -> int:
                          "plain_ms", "bound_ms", "bound_by", "library_ms")
                          if key in t[at]}
                         for at in ("at_qwen3", "at_olmo", "at_moe",
+                                   "at_lse", "at_lse_qwen3", "at_shards_n2",
+                                   "at_shards_n4", "at_shards_n8",
+                                   "at_q_offset",
                                    "at_jamba", "at_seamless",
                                    "at_seamless_cross", "at_internvl",
                                    "at_danube", "at_danube_b8", "at_s200",

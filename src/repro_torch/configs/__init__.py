@@ -2,9 +2,7 @@
 
 ``get_config(arch_id)`` returns the full config; ``get_smoke_config`` a
 reduced same-family config for CPU tests. All ten arch ids of the JAX
-package are registered; ``models/model.py`` ``init_params`` refuses the
-families whose model path is not ported yet (MoE FFNs, encoder-decoders
-and modality frontends).
+package are registered, and ``models/model.py`` builds each of them.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ Sequence accounting: for VLM archs the vision prefix counts toward the
 cell's seq_len (text tokens = seq_len - num_prefix_embeddings), so every
 cell processes exactly ``seq_len`` positions. The reference's
 ``input_specs`` and ``cache_specs``, which build ``jax.ShapeDtypeStruct``
-stand-ins for its dry-run, have no counterpart here: the dry-run waits for
-the distributed port.
+stand-ins for its dry-run, have no counterpart here: the dry-run
+(``repro/launch/dryrun.py``) is the one distributed piece not ported yet
+(ROADMAP, queue 1).
 """
 from __future__ import annotations
 

@@ -46,11 +46,20 @@
 // columns (an H100 80GB HBM3 at 700 W, repro_torch.profiling.decode_ab),
 // so both are kept.
 //
-// C entry point: decode_attention_launch(q, k, v, valid_len, out, B, H, KV,
-// C, D, k_sb, k_sc, v_sb, v_sc, dtype, stream): q and out (B, H, D)
-// contiguous; k, v with element strides (k_sb, k_sc, D, 1); valid_len (B,)
-// int32 on the device; dtype 0 = all float32, 1 = all bfloat16, 2 = float32
-// q and out over a bfloat16 cache.
+// The merging block may also write each row's log-sum-exp of its scaled
+// scores, lse = mx + log(den) in f32, the partial a sharded flash-decode
+// (models/attention.py decode_attention_sharded) combines across cache
+// shards. A row with no valid position (valid_len 0, a shard whose chunk
+// lies past the newest token) has mx = -inf and den = 0 in every block: its
+// output is 0 / 1e-30 = 0 and its lse -inf, never NaN. Writing the lse
+// changes no arithmetic of the output.
+//
+// C entry point: decode_attention_launch(q, k, v, valid_len, out, lse, B,
+// H, KV, C, D, k_sb, k_sc, v_sb, v_sc, dtype, stream): q and out (B, H, D)
+// contiguous; lse (B, H) f32 contiguous, or null (not written); k, v with
+// element strides (k_sb, k_sc, D, 1); valid_len (B,) int32 on the device;
+// dtype 0 = all float32, 1 = all bfloat16, 2 = float32 q and out over a
+// bfloat16 cache.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -146,7 +155,8 @@ template <typename TQ, typename T, int D>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kWarps * 32)
 decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ valid_len,
-              TQ* __restrict__ out, int H, int KV, int C, long long k_sb,
+              TQ* __restrict__ out, float* __restrict__ lse, int H, int KV,
+              int C, long long k_sb,
               long long k_sc, long long v_sb, long long v_sc, float scale) {
   using G_ = Geo<T, D>;
   constexpr int VE = 16 / sizeof(T);   // elements per 16-byte chunk
@@ -311,6 +321,9 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       }
       out[(static_cast<long long>(b) * H + kvh * G) * D + i] =
           from_f<TQ>(num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && i % D == 0)
+        lse[static_cast<long long>(b) * H + kvh * G + gg] =
+            den > 0.f ? mx + logf(den) : -INFINITY;
     }
   }
   cluster.sync();   // no block leaves while rank 0 reads its partial
@@ -318,9 +331,9 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 
 template <typename TQ, typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const void* valid_len, void* out, int B, int H, int KV,
-                     int C, long long k_sb, long long k_sc, long long v_sb,
-                     long long v_sc, cudaStream_t stream) {
+                     const void* valid_len, void* out, void* lse, int B,
+                     int H, int KV, int C, long long k_sb, long long k_sc,
+                     long long v_sb, long long v_sc, cudaStream_t stream) {
   constexpr int smem = Geo<T, D>::SMEM;
   // once per instantiation (at its first, eager launch), not at every
   // launch: a launch inside a CUDA-graph capture then makes no other API
@@ -333,29 +346,27 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   decode_kernel<TQ, T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(valid_len),
-      static_cast<TQ*>(out), H, KV, C, k_sb, k_sc, v_sb, v_sc,
+      static_cast<TQ*>(out), static_cast<float*>(lse), H, KV, C, k_sb, k_sc,
+      v_sb, v_sc,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
 template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* valid_len, void* out, int B, int H, int KV,
-                   int C, int D, long long k_sb, long long k_sc,
+                   const void* valid_len, void* out, void* lse, int B, int H,
+                   int KV, int C, int D, long long k_sb, long long k_sc,
                    long long v_sb, long long v_sc, cudaStream_t stream) {
   switch (D) {
-    case 32:
-      return launch_d<TQ, T, 32>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
-                                 k_sc, v_sb, v_sc, stream);
-    case 64:
-      return launch_d<TQ, T, 64>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
-                                 k_sc, v_sb, v_sc, stream);
-    case 80:
-      return launch_d<TQ, T, 80>(q, k, v, valid_len, out, B, H, KV, C, k_sb,
-                                 k_sc, v_sb, v_sc, stream);
-    case 128:
-      return launch_d<TQ, T, 128>(q, k, v, valid_len, out, B, H, KV, C,
-                                  k_sb, k_sc, v_sb, v_sc, stream);
+#define DECODE_CASE(DD)                                                     \
+    case DD:                                                              \
+      return launch_d<TQ, T, DD>(q, k, v, valid_len, out, lse, B, H, KV, C, \
+                                 k_sb, k_sc, v_sb, v_sc, stream);
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(80)
+    DECODE_CASE(128)
+#undef DECODE_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -365,24 +376,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* valid_len,
-    void* out, int B, int H, int KV, int C, int D, long long k_sb,
-    long long k_sc, long long v_sb, long long v_sc, int dtype,
-    void* stream) {
+    void* out, void* lse, int B, int H, int KV, int C, int D,
+    long long k_sb, long long k_sc, long long v_sb, long long v_sc,
+    int dtype, void* stream) {
   if (B < 1 || B > 65535 || KV < 1 || H % KV != 0 || H / KV > kGMax
       || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float, float>(q, k, v, valid_len, out, B, H, KV, C, D,
+    err = launch<float, float>(q, k, v, valid_len, out, lse, B, H, KV, C, D,
                                k_sb, k_sc, v_sb, v_sc, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, valid_len, out, B,
-                                               H, KV, C, D, k_sb, k_sc, v_sb,
-                                               v_sc, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, valid_len, out, lse,
+                                               B, H, KV, C, D, k_sb, k_sc,
+                                               v_sb, v_sc, s);
   } else if (dtype == 2) {
-    err = launch<float, __nv_bfloat16>(q, k, v, valid_len, out, B, H, KV, C,
-                                       D, k_sb, k_sc, v_sb, v_sc, s);
+    err = launch<float, __nv_bfloat16>(q, k, v, valid_len, out, lse, B, H,
+                                       KV, C, D, k_sb, k_sc, v_sb, v_sc, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -56,7 +56,12 @@
 // one m64n80k16 wgmma whose B operand strides over them.
 // Queries run to S and keys to Sk: the key-tile walk, the tail mask and
 // the K/V tensor maps use Sk, the query tiles and the Q and output maps S.
-// Causal and windowed calls need Sk == S (the wrapper raises otherwise).
+// In the causal and windowed forms query row i stands at position
+// q_offset + i of the keys (a sequence-parallel chunk of the queries over
+// all the keys, models/attention.py): it sees key j iff j <= q_offset + i
+// and (window == 0 or j > q_offset + i - window), and the key-tile bounds
+// move with it; these forms need Sk == q_offset + S (the wrapper raises
+// otherwise). q_offset 0 with Sk == S is the arithmetic of a plain call.
 //
 // f32 design (dtype 0; parity runs only): CUDA cores, one thread per query
 // row, 32-key K/V tiles staged in shared memory, online softmax in f32.
@@ -65,8 +70,8 @@
 // file and ptxas spills them to local memory: correct, and slow.
 //
 // C entry point: flash_attention_launch(q, k, v, out, B, S, Sk, H, KV, D,
-// q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, dtype,
-// stream);
+// q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
+// q_offset, dtype, stream);
 // head stride D and element stride 1 for every tensor; dtype 0 = float32,
 // 1 = bfloat16.
 
@@ -93,7 +98,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int S, int Sk, int H, int KV, long long q_sb, long long q_ss,
                  long long k_sb, long long k_ss, long long v_sb,
                  long long v_ss, long long o_sb, long long o_ss, int causal,
-                 int window, float scale) {
+                 int window, int q_offset, float scale) {
   constexpr int CHUNKS = D / 4;           // 16-byte loads per row
   __shared__ __align__(16) float k_s[kKeys][D];
   __shared__ __align__(16) float v_s[kKeys][D];
@@ -129,8 +134,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // keys this block's rows can see: [k_lo, k_hi)
   int k_hi = Sk, k_lo = 0;
   if (causal) {
-    k_hi = min(Sk, q0 + kRows);
-    if (window > 0) k_lo = max(0, q0 - window + 1) / kKeys * kKeys;
+    k_hi = min(Sk, q_offset + q0 + kRows);
+    if (window > 0)
+      k_lo = max(0, q_offset + q0 - window + 1) / kKeys * kKeys;
   }
   const float* kb = k + b * k_sb + static_cast<long long>(kvh) * D;
   const float* vb = v + b * v_sb + static_cast<long long>(kvh) * D;
@@ -158,8 +164,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kj = kt + r;
       bool keep = kj < Sk;
       if (causal) {
-        keep = keep && kj <= qi;
-        if (window > 0) keep = keep && kj > qi - window;
+        keep = keep && kj <= q_offset + qi;
+        if (window > 0) keep = keep && kj > q_offset + qi - window;
       }
       float dot = 0.f;
       const float4* kr = reinterpret_cast<const float4*>(&k_s[r][0]);
@@ -211,13 +217,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        long long q_sb, long long q_ss, long long k_sb,
                        long long k_ss, long long v_sb, long long v_ss,
                        long long o_sb, long long o_ss, int causal, int window,
-                       cudaStream_t stream) {
+                       int q_offset, cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_f32_kernel<D><<<grid, kRows, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, Sk, H, KV,
       q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
+      q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, q_offset,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -500,7 +506,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap to, int S, int Sk,
-                  int H, int KV, int causal, int window, float scale_log2) {
+                  int H, int KV, int causal, int window, int q_offset,
+                  float scale_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -522,8 +529,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   // keys this block's rows can see: [k_lo, k_hi), walked in 64-key tiles
   int k_hi = Sk, k_lo = 0;
   if (causal) {
-    k_hi = min(Sk, q0 + kBM);
-    if (window > 0) k_lo = max(0, q0 - window + 1);
+    k_hi = min(Sk, q_offset + q0 + kBM);
+    if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
   }
   const int t_lo = k_lo / kBN;
   const int n_tiles = (k_hi + kBN - 1) / kBN - t_lo;
@@ -596,9 +603,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // mask the tiles that cross an edge; the row max is taken on the raw
     // scores (the scale is positive) and scaled once per row
     const int kt = (t_lo + i) * kBN;
+    const int p0 = q_offset + q0;   // the key position of the tile's row 0
     const bool mask = kt + kBN > Sk
-        || (causal && (kt + kBN - 1 > q0
-                       || (window > 0 && kt < q0 + kBM - window)));
+        || (causal && (kt + kBN - 1 > p0
+                       || (window > 0 && kt < p0 + kBM - window)));
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -609,8 +617,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
           const int row = r0 + 8 * (e >> 1);
           bool keep = key < Sk;
           if (causal) {
-            keep = keep && key <= row;
-            if (window > 0) keep = keep && key > row - window;
+            keep = keep && key <= q_offset + row;
+            if (window > 0) keep = keep && key > q_offset + row - window;
           }
           if (!keep) s[4 * j + e] = -INFINITY;
         }
@@ -764,7 +772,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         long long q_sb, long long q_ss, long long k_sb,
                         long long k_ss, long long v_sb, long long v_ss,
                         long long o_sb, long long o_ss, int causal,
-                        int window, cudaStream_t stream) {
+                        int window, int q_offset, cudaStream_t stream) {
   using G = Geo<D>;
   if (encoder() == nullptr) return cudaErrorNotSupported;
   // The tensor maps are encoded on the host and passed by value, so a
@@ -786,7 +794,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (allowed != cudaSuccess) return allowed;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
   flash_bf16_kernel<D><<<grid, kThreads, G::SMEM, stream>>>(
-      tq, tk, tv, to, S, Sk, H, KV, causal, window,
+      tq, tk, tv, to, S, Sk, H, KV, causal, window, q_offset,
       1.4426950408889634f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -797,14 +805,15 @@ extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int Sk, int H, int KV, int D, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-    long long o_sb, long long o_ss, int causal, int window, int dtype,
-    void* stream) {
+    long long o_sb, long long o_ss, int causal, int window, int q_offset,
+    int dtype, void* stream) {
   if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535
-      || H > 65535 || (S + 63) / 64 > 65535 || (causal && Sk != S))
+      || H > 65535 || (S + 63) / 64 > 65535 || q_offset < 0
+      || (causal && q_offset + S != Sk) || (!causal && q_offset != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS q, k, v, out, B, S, Sk, H, KV, q_sb, q_ss, k_sb, k_ss, \
-                   v_sb, v_ss, o_sb, o_ss, causal, window, s
+                   v_sb, v_ss, o_sb, o_ss, causal, window, q_offset, s
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (D) {

@@ -11,8 +11,9 @@
 // torch.autograd.Function in kernels/flash_attention.py.
 //
 // What it computes (scale = 1/sqrt(hd) in f32; query i sees key j iff
-// j < Sk and, in the causal form, j <= i and (window == 0 or
-// j > i - window)):
+// j < Sk and, in the causal form, j <= q_offset + i and (window == 0 or
+// j > q_offset + i - window); q_offset places a sequence-parallel chunk of
+// the queries among all the keys, and is 0 for a plain call):
 //   P_ij  = exp(scale q_i.k_j - lse_i)        lse_i = log sum_j exp(...)
 //   dP_ij = dO_i.v_j,   D_i = dO_i.o_i,   dS_ij = P_ij (dP_ij - D_i)
 //   dq_i  = scale sum_j dS_ij k_j
@@ -39,9 +40,11 @@
 //    in registers.
 //  Pad rows (i >= Sq) and pad keys (j >= Sk) of the last tiles are
 //  zero-filled and masked; a row with no visible key gets lse = +inf and
-//  P = 0, never NaN. Key-tile bounds follow the window: query tile q0 sees
-//  key tiles from (q0 - window + 1) rounded down, key tile k0 is seen by
-//  query rows up to k0 + 63 + window - 1.
+//  P = 0, never NaN. Key-tile bounds follow the offset and the window:
+//  query tile q0 sees key tiles up to q_offset + q0 + 63 and from
+//  (q_offset + q0 - window + 1) rounded down; key tile k0 is seen by query
+//  tiles from (k0 - q_offset) rounded down to rows up to
+//  k0 + 63 + window - 1 - q_offset.
 //
 // bf16 (dtype 1): the tensor cores, mma.sync m16n8k16 with f32
 // accumulators, 4 warps a block, each owning 16 rows of the 64-row tile.
@@ -68,7 +71,8 @@
 //
 // C entry point: flash_attention_bwd_launch(q, k, v, o, dout, dq, dk, dv,
 // lse, delta, B, Sq, Sk, H, KV, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-// o_sb, o_ss, do_sb, do_ss, causal, window, dtype, stream); q, o, dout
+// o_sb, o_ss, do_sb, do_ss, causal, window, q_offset, dtype, stream); q,
+// o, dout
 // (B, Sq, H, D) and k, v (B, Sk, KV, D) with head stride D and element
 // stride 1; dq, dk, dv contiguous in the same shapes; lse and delta
 // (B, H, Sq) f32 scratch; dtype 0 = float32, 1 = bfloat16.
@@ -91,14 +95,15 @@ struct Args {
   float* lse; float* delta;
   int Sq, Sk, H, KV;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
-  int causal, window;
+  int causal, window, q_offset;
   float scale;
 };
 
 __device__ __forceinline__ bool visible(int qi, int kj, const Args& a) {
   if (qi >= a.Sq || kj >= a.Sk) return false;
   if (!a.causal) return true;
-  return kj <= qi && (a.window <= 0 || kj > qi - a.window);
+  const int pos = a.q_offset + qi;   // the query's position among the keys
+  return kj <= pos && (a.window <= 0 || kj > pos - a.window);
 }
 
 // rows [row0, row0 + 64) of one head of a (B, S, heads, D) operand (src
@@ -216,8 +221,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
   // key tiles any of this block's rows can see: [k_lo, k_hi)
   int k_lo = 0, k_hi = a.Sk;
   if (a.causal) {
-    k_hi = min(a.Sk, q0 + kTile);
-    if (a.window > 0) k_lo = max(0, q0 - a.window + 1) / kTile * kTile;
+    k_hi = min(a.Sk, a.q_offset + q0 + kTile);
+    if (a.window > 0)
+      k_lo = max(0, a.q_offset + q0 - a.window + 1) / kTile * kTile;
   }
 
   // pass 1: each row's max and sum -> lse
@@ -357,8 +363,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(Args a) {
   // query tiles that can see any of this block's keys: [q_lo, q_hi)
   int q_lo = 0, q_hi = a.Sq;
   if (a.causal) {
-    q_lo = k0;   // a multiple of the 64-row query tile
-    if (a.window > 0) q_hi = min(a.Sq, k0 + kTile - 1 + a.window);
+    // a multiple of the 64-row query tile
+    q_lo = max(0, k0 - a.q_offset) / kTile * kTile;
+    if (a.window > 0)
+      q_hi = min(a.Sq, max(0, k0 + kTile - 1 + a.window - a.q_offset));
   }
 
   float dk[4][NC], dv[4][NC];
@@ -614,8 +622,9 @@ flash_bwd_dq_bf16_kernel(Args a) {
 
   int k_lo = 0, k_hi = a.Sk;
   if (a.causal) {
-    k_hi = min(a.Sk, q0 + kTile);
-    if (a.window > 0) k_lo = max(0, q0 - a.window + 1) / kTile * kTile;
+    k_hi = min(a.Sk, a.q_offset + q0 + kTile);
+    if (a.window > 0)
+      k_lo = max(0, a.q_offset + q0 - a.window + 1) / kTile * kTile;
   }
 
   // pass 1: the two rows' max and sum -> lse
@@ -747,8 +756,9 @@ flash_bwd_dkdv_bf16_kernel(Args a) {
 
   int q_lo = 0, q_hi = a.Sq;
   if (a.causal) {
-    q_lo = k0;
-    if (a.window > 0) q_hi = min(a.Sq, k0 + kTile - 1 + a.window);
+    q_lo = max(0, k0 - a.q_offset) / kTile * kTile;
+    if (a.window > 0)
+      q_hi = min(a.Sq, max(0, k0 + kTile - 1 + a.window - a.q_offset));
   }
 
   float dk[NT][4], dv[NT][4];
@@ -869,9 +879,11 @@ extern "C" int flash_attention_bwd_launch(
     int B, int Sq, int Sk, int H, int KV, int D, long long q_sb,
     long long q_ss, long long k_sb, long long k_ss, long long v_sb,
     long long v_ss, long long o_sb, long long o_ss, long long do_sb,
-    long long do_ss, int causal, int window, int dtype, void* stream) {
+    long long do_ss, int causal, int window, int q_offset, int dtype,
+    void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || q_offset < 0 || (causal && q_offset + Sq != Sk) ||
+      (!causal && q_offset != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -882,7 +894,7 @@ extern "C" int flash_attention_bwd_launch(
   a.q_sb = q_sb; a.q_ss = q_ss; a.k_sb = k_sb; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_ss = v_ss; a.o_sb = o_sb; a.o_ss = o_ss;
   a.do_sb = do_sb; a.do_ss = do_ss;
-  a.causal = causal; a.window = window;
+  a.causal = causal; a.window = window; a.q_offset = q_offset;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_f32(a, B, D, s)

@@ -9,7 +9,9 @@ plain version (``ref.decode_attention_ref``); on a CUDA tensor it launches
 the kernel or raises (also where an input requires grad: the kernel has
 no backward, ``counts.forward_only``). One launch splits each row's
 positions over a cluster of 8 blocks per KV head and merges their
-partials on chip.
+partials on chip. With ``return_lse=True`` the merging block also writes
+each row's log-sum-exp, the partial that a sharded flash-decode combines
+across cache shards (``models/attention.py`` ``_combine_partials``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ HEAD_DIMS = (32, 64, 80, 128)  # head widths the kernel is instantiated for
 _DTYPES = {(torch.float32, torch.float32): 0,
            (torch.bfloat16, torch.bfloat16): 1,
            (torch.float32, torch.bfloat16): 2}
-_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
          + (ctypes.c_longlong,) * 4 + (ctypes.c_int, ctypes.c_void_p))
 
 
@@ -40,13 +42,17 @@ def _aligned(t: torch.Tensor, dims) -> bool:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: Union[int, torch.Tensor]) -> torch.Tensor:
+                     valid_len: Union[int, torch.Tensor],
+                     return_lse: bool = False):
     """q (B, H, hd); k/v (B, C, KV, hd) (any strides over B and C, dense
     over KV and hd); valid_len scalar or (B,) — row b attends to cache slots
-    ``< valid_len[b]``; q and the cache f32 or bf16 alike, or f32 q over
-    a bf16 cache. -> (B, H, hd) in q's dtype."""
+    ``< valid_len[b]`` (none: the row's output is 0); q and the cache f32
+    or bf16 alike, or f32 q over a bf16 cache. -> (B, H, hd) in q's dtype,
+    and with ``return_lse`` also the rows' log-sum-exp of their scaled
+    scores (B, H) f32 (-inf where a row has no valid slot). The output is
+    the same either way."""
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, valid_len)
+        return ref.decode_attention_ref(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     counts.forward_only("decode_attention", q, k, v)
@@ -82,14 +88,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vl = vl.to(device=q.device, dtype=torch.int32)
     vl = vl.contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = build.function("decode_attention", "decode_attention_launch", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-            out.data_ptr(), b, h, kv, c, d, k.stride(0), k.stride(1),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, h,
+            kv, c, d, k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "decode_attention")
     counts.launched(decode_attention)
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -3,10 +3,14 @@
 ``csrc/flash_attention.cu``).
 
 The wrapper reads q as ``(B, Sq, H, hd)`` and k/v as ``(B, Sk, KV, hd)``
-— the model's layouts — by strides, and writes ``(B, Sq, H, hd)``. Keys
-have a length of their own only in the full form (``causal=False``: the
-encoder-decoder's cross attention); the causal and windowed forms need
-``Sk == Sq``. On a CPU
+— the model's layouts — by strides, and writes ``(B, Sq, H, hd)``. In the
+full form (``causal=False``: the encoder and the encoder-decoder's cross
+attention) every query sees every key. In the causal and windowed forms
+query i stands at key position ``q_offset + i``, and the keys run to the
+last query's position: ``Sk == q_offset + Sq``. ``q_offset`` is 0 for a
+whole sequence, and a chunk's start for the sequence-parallel attention,
+whose queries are one chunk of the sequence over the keys up to its
+end. On a CPU
 tensor it runs the plain version (``ref.flash_attention_ref``); on a CUDA
 tensor it launches the kernel or raises. bf16 runs on the tensor cores
 (wgmma, TMA-fed tiles); f32, which only parity runs use, runs on the CUDA
@@ -35,10 +39,10 @@ __all__ = ["flash_attention", "flash_attention_bwd", "HEAD_DIMS"]
 HEAD_DIMS = (32, 64, 80, 128)  # head widths the kernel is instantiated for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
-         + (ctypes.c_longlong,) * 8 + (ctypes.c_int,) * 3
+         + (ctypes.c_longlong,) * 8 + (ctypes.c_int,) * 4
          + (ctypes.c_void_p,))
 _BWD_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
-             + (ctypes.c_longlong,) * 10 + (ctypes.c_int,) * 3
+             + (ctypes.c_longlong,) * 10 + (ctypes.c_int,) * 4
              + (ctypes.c_void_p,))
 
 
@@ -50,23 +54,26 @@ def _dense_heads(t: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
-    dtype. Query i sees key j iff j <= i and (window == 0 or j > i -
-    window), which needs Sk == Sq; ``causal=False`` sees every key.
-    Differentiable on both devices (see the module docstring)."""
+    dtype. Query i sees key j iff j <= q_offset + i and (window == 0 or
+    j > q_offset + i - window), which needs Sk == q_offset + Sq;
+    ``causal=False`` sees every key. Differentiable on both devices (see
+    the module docstring)."""
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, causal, window)
+    _check(q, k, v, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           window: int) -> None:
+           window: int, q_offset: int) -> None:
     """Raise on what the CUDA kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q must be (B, Sq, H, hd) and k, "
@@ -76,9 +83,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if k.shape[0] != b or k.shape[3] != d or sk < 1:
         raise ValueError("flash_attention: q, k, v disagree on B or hd, or "
                          "there are no keys")
-    if causal and sk != s:
-        raise ValueError(f"flash_attention: the causal and windowed forms "
-                         f"need as many keys as queries (Sq {s}, Sk {sk})")
+    ref._check_offset("flash_attention", s, sk, causal, q_offset)
     kv = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype "
@@ -97,7 +102,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, window: int) -> torch.Tensor:
+             causal: bool, window: int, q_offset: int) -> torch.Tensor:
     """One launch of the forward kernel on checked CUDA tensors."""
     b, s, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -106,7 +111,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             sk, h, kv, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            int(causal), int(window), _DTYPES[q.dtype],
+            int(causal), int(window), int(q_offset), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     counts.launched(flash_attention)
@@ -120,24 +125,26 @@ class _FlashAttention(torch.autograd.Function):
     """The forward kernel, differentiated by the backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = _forward(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.form = (causal, window)
+        ctx.form = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.form)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, dout: torch.Tensor,
-                        causal: bool = True, window: int = 0
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of ``flash_attention(q, k, v, causal, window)`` = o
+    """The gradient of ``flash_attention(q, k, v, causal, window,
+    q_offset)`` = o
     against dout (B, Sq, H, hd): (dq, dk, dv) in q's, k's and v's shapes
     and dtype. On a CPU tensor it runs the plain version
     (``ref.flash_attention_bwd_ref``); on a CUDA tensor it launches
@@ -145,11 +152,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or raises. Both read D_i = dO_i . o_i from the ``o`` given."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
-                                           window=window)
+                                           window=window, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check(q, k, v, causal, window)
+    _check(q, k, v, causal, window, q_offset)
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and dout must have q's "
                          "shape")
@@ -172,7 +179,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), b, s, sk, h, kv, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), o.stride(0), o.stride(1), dout.stride(0),
-            dout.stride(1), int(causal), int(window), _DTYPES[q.dtype],
+            dout.stride(1), int(causal), int(window), int(q_offset),
+            _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_bwd")
     counts.launched(flash_attention_bwd)

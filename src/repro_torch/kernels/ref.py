@@ -10,12 +10,15 @@ upcasts, in the model's layouts:
                              index (the Pallas kernel's masked second max);
 * ``decode_attention_ref`` — one query token per row against the cache in
                              its ``(B, C, KV, hd)`` layout, keys
-                             ``< valid_len[b]`` per row;
+                             ``< valid_len[b]`` per row (a row with none
+                             gives 0), optionally with each row's
+                             log-sum-exp of its scaled scores;
 * ``flash_attention_ref``  — causal (optionally windowed) or full
                              attention over ``(B, Sq, H, hd)`` queries and
-                             ``(B, Sk, KV, hd)`` keys/values (Sk == Sq
-                             unless full), GQA by head grouping (query
-                             head h reads KV head h // G);
+                             ``(B, Sk, KV, hd)`` keys/values, GQA by head
+                             grouping (query head h reads KV head h // G);
+                             causal query i stands at key position
+                             ``q_offset + i``;
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
                              the output and the last state;
@@ -68,11 +71,14 @@ def _valid_len(valid_len: Union[int, torch.Tensor], b: int,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         valid_len: Union[int, torch.Tensor]
-                         ) -> torch.Tensor:
+                         valid_len: Union[int, torch.Tensor],
+                         return_lse: bool = False):
     """q (B, H, hd) one token per row; k/v (B, C, KV, hd); valid_len scalar
-    or (B,) — row b attends to cache slots ``< valid_len[b]``.
-    -> (B, H, hd) in q's dtype."""
+    or (B,) — row b attends to cache slots ``< valid_len[b]``; a row with
+    no valid slot gives 0. -> (B, H, hd) in q's dtype, and with
+    ``return_lse`` also (B, H) f32: each row's log of the sum of
+    exp(q.k / sqrt(hd)) over its valid slots (-inf where it has none),
+    the partial a sharded flash-decode combines."""
     b, h, d = q.shape
     c, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -80,30 +86,46 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bkgd,bckd->bkgc", qf, k.float()) / math.sqrt(d)
     vl = _valid_len(valid_len, b, q.device)
     keep = torch.arange(c, device=q.device)[None, :] < vl[:, None]   # (B,C)
-    scores = scores.masked_fill(~keep[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    masked = scores.masked_fill(~keep[:, None, None, :], NEG_INF)
+    probs = torch.softmax(masked, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", probs, v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.masked_fill((vl == 0)[:, None, None, None], 0.0)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores.masked_fill(~keep[:, None, None, :],
+                                             float("-inf")), dim=-1)
+    return out, lse.reshape(b, h)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0
-                        ) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
-    dtype. Query i sees key j iff j <= i and (window == 0 or j > i -
-    window), which needs Sk == Sq; ``causal=False`` sees every key."""
+    dtype. Query i stands at key position ``q_offset + i`` and sees key j
+    iff j <= q_offset + i and (window == 0 or j > q_offset + i - window),
+    which needs Sk == q_offset + Sq; ``causal=False`` sees every key (and
+    takes no offset)."""
     b, s, h, d = q.shape
-    if causal and k.shape[1] != s:
-        raise ValueError(f"flash_attention_ref: the causal and windowed "
-                         f"forms need as many keys as queries (Sq {s}, Sk "
-                         f"{k.shape[1]})")
-    probs = _flash_probs(q, k, causal, window)
+    _check_offset("flash_attention_ref", s, k.shape[1], causal, q_offset)
+    probs = _flash_probs(q, k, causal, window, q_offset)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _check_offset(name: str, sq: int, sk: int, causal: bool,
+                  q_offset: int) -> None:
+    if q_offset < 0 or (not causal and q_offset):
+        raise ValueError(f"{name}: q_offset must be >= 0, and 0 in the full "
+                         f"form (got {q_offset})")
+    if causal and q_offset + sq != sk:
+        raise ValueError(f"{name}: the causal and windowed forms need "
+                         f"Sk == q_offset + Sq (q_offset {q_offset}, Sq "
+                         f"{sq}, Sk {sk})")
+
+
 def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                 window: int) -> torch.Tensor:
+                 window: int, q_offset: int = 0) -> torch.Tensor:
     """The softmax weights (B, KV, G, Sq, Sk) f32 of query head
     ``kv * G + g`` over the keys it sees."""
     b, s, h, d = q.shape
@@ -112,8 +134,8 @@ def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
     qf = q.float().reshape(b, s, kv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(d)
     if causal:
-        qi = torch.arange(s, device=q.device)[:, None]
-        kj = torch.arange(s, device=q.device)[None, :]
+        qi = torch.arange(s, device=q.device)[:, None] + q_offset
+        kj = torch.arange(k.shape[1], device=q.device)[None, :]
         keep = kj <= qi
         if window > 0:
             keep &= kj > qi - window
@@ -124,7 +146,7 @@ def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             dout: torch.Tensor, causal: bool = True,
-                            window: int = 0
+                            window: int = 0, q_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The plain backward: (dq, dk, dv) in q's, k's and v's dtypes, by
@@ -140,10 +162,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     with torch.enable_grad():
         qf, kf, vf = (t.detach().float().requires_grad_(True)
                       for t in (q, k, v))
-        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                                  q_offset=q_offset)
         dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), dout.float())
     moved = (dout.float() * (o.float() - out.detach())).sum(-1)
-    pw = _flash_probs(qf.detach(), kf.detach(), causal, window)
+    pw = _flash_probs(qf.detach(), kf.detach(), causal, window, q_offset)
     pw.mul_(moved.reshape(b, s, kv, g).permute(0, 2, 3, 1)[..., None])
     scale = 1.0 / math.sqrt(d)
     dq = dq - scale * torch.einsum("bkgqs,bskd->bqkgd", pw, kf.detach()) \

@@ -5,6 +5,15 @@ Plain functions over a parameter dict that keeps the JAX pytree's layout
 and dtypes: norm scales stay float32 under bfloat16 weights, every norm and
 rotation computes in float32 and casts back, and the LM head multiplies in
 the activation dtype before the float32 cast.
+
+Under a mesh the params are this process's blocks
+(``distributed.sharding.local_params``): a width the rules put on the
+model axis is cut into ``model_blocks(width)`` blocks. The products are
+then tensor-parallel, Megatron-style: a column-split weight takes its
+input through ``tp_in`` (``compat.copy_to``: its gradient summed over the
+model axis), a row-split one gives partial sums that ``tp_out``
+(``compat.reduce_from``) adds up. The embedding table and the LM head
+are split over the vocab, and the cross-entropy takes vocab-split logits.
 """
 from __future__ import annotations
 
@@ -13,10 +22,16 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import compat
+from repro_torch.distributed.context import get_context
+from repro_torch.distributed.sharding import model_blocks
+
 Params = Dict[str, Any]
 
 __all__ = ["Params", "apply_norm", "rope_frequencies", "apply_rope",
-           "apply_ffn", "embed_tokens", "lm_logits", "cross_entropy_loss"]
+           "apply_ffn", "embed_tokens", "lm_logits", "cross_entropy_loss",
+           "model_blocks", "tp_in", "tp_out", "tp_whole", "tp_own",
+           "vocab_whole"]
 
 
 def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
@@ -56,36 +71,131 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_ffn(p: Params, x: torch.Tensor,
-              activation: str = "silu") -> torch.Tensor:
-    """Gated FFN (SwiGLU; GeGLU with the tanh GELU, as ``jax.nn.gelu``)."""
+def _model_axis() -> str:
+    return get_context().model_axis
+
+
+def tp_in(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The input of a product whose weight is split into ``n`` blocks over
+    the model axis by its output columns: its gradient is summed over the
+    axis."""
+    return compat.copy_to(x, _model_axis()) if n > 1 else x
+
+
+def tp_out(y: torch.Tensor, n: int) -> torch.Tensor:
+    """The output of a product whose weight is split into ``n`` blocks by
+    its input rows: the partial sums added over the model axis."""
+    return compat.reduce_from(y, _model_axis()) if n > 1 else y
+
+
+def tp_whole(y: torch.Tensor, n: int, split_after: bool) -> torch.Tensor:
+    """The whole of an output split into ``n`` blocks along its last dim,
+    gathered over the model axis. ``split_after``: the processes go on to
+    use different parts of it, so its gradient is summed over the axis
+    first."""
+    if n == 1:
+        return y
+    y = compat.gather_from(y, _model_axis(), y.dim() - 1)
+    return compat.copy_to(y, _model_axis()) if split_after else y
+
+
+def tp_own(y: torch.Tensor, n: int) -> torch.Tensor:
+    """This process's block of ``n`` along the last dim of a tensor every
+    process holds whole (the input of a row-split product)."""
+    if n == 1:
+        return y
+    w = y.shape[-1] // n
+    i = compat.axis_index(_model_axis())
+    return compat.copy_to(y, _model_axis())[..., i * w:(i + 1) * w]
+
+
+def apply_ffn(p: Params, x: torch.Tensor, activation: str = "silu",
+              d_ff: int = 0) -> torch.Tensor:
+    """Gated FFN (SwiGLU; GeGLU with the tanh GELU, as ``jax.nn.gelu``).
+    ``d_ff``: the whole width, split over the model axis where
+    ``model_blocks`` says (0: the weights are whole)."""
+    n = model_blocks(d_ff) if d_ff else 1
+    x = tp_in(x, n)
     h = x @ p["w_gate"]
     gate = F.silu(h) if activation == "silu" else F.gelu(h, approximate="tanh")
-    return (gate * (x @ p["w_up"])) @ p["w_down"]
+    return tp_out((gate * (x @ p["w_up"])) @ p["w_down"], n)
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S) token ids -> (B, S, D) rows of the embedding table."""
-    return p["embedding"][tokens.long()]
+def _vocab_block(vocab: int):
+    """(blocks, this process's first row) of a vocab of ``vocab`` rows."""
+    n = model_blocks(vocab) if vocab else 1
+    return n, (compat.axis_index(_model_axis()) * (vocab // n) if n > 1
+               else 0)
 
 
-def lm_logits(p: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:
-    """Final logits in float32: the product runs in the activation dtype."""
+def embed_tokens(p: Params, tokens: torch.Tensor, vocab: int = 0
+                 ) -> torch.Tensor:
+    """(B, S) token ids -> (B, S, D) rows of the embedding table. Where
+    the table is split over the vocab (``vocab``: its whole row count),
+    each process looks up the ids its block holds, zeros elsewhere, and
+    one sum over the model axis gives every process the rows: the values
+    of the reference's one-hot product over the sharded table, and of a
+    plain lookup."""
+    w = p["embedding"]
+    n, lo = _vocab_block(vocab)
+    if n == 1:
+        return w[tokens.long()]
+    ids = tokens.long() - lo
+    mine = (ids >= 0) & (ids < w.shape[0])
+    rows = w[torch.where(mine, ids, torch.zeros_like(ids))]
+    return tp_out(rows * mine[..., None].to(rows.dtype), n)
+
+
+def lm_logits(p: Params, x: torch.Tensor, tie: bool, vocab: int = 0
+              ) -> torch.Tensor:
+    """Final logits in float32: the product runs in the activation dtype.
+    Where the head (the embedding table when tied) is split over the
+    vocab, this process's block of the logits (the reference's
+    ``constrain(logits, "batch", "vocab")``)."""
     w = p["embedding"].T if tie else p["lm_head"]
-    return (x @ w.to(x.dtype)).float()
+    n, _ = _vocab_block(vocab)
+    return (tp_in(x, n) @ w.to(x.dtype)).float()
+
+
+def vocab_whole(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Logits split over the vocab (``lm_logits``) gathered whole."""
+    n, _ = _vocab_block(vocab)
+    return tp_whole(logits, n, split_after=False)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_id: int = -1) -> torch.Tensor:
-    """Mean token cross-entropy in float32 (the single-device branch of
-    the reference): logsumexp minus the gold logit, masked where the label
-    is ``ignore_id``, over max(count, 1). logits (B, S, V), labels (B, S).
-    The reference's one-hot branch for a vocab-sharded mesh waits for the
-    distributed port."""
+                       ignore_id: int = -1, vocab: int = 0) -> torch.Tensor:
+    """Mean token cross-entropy in float32: logsumexp minus the gold logit,
+    masked where the label is ``ignore_id``, over max(count, 1). logits
+    (B, S, V), labels (B, S). Where the logits are split over the vocab
+    (``vocab``: the whole count), the logsumexp and the gold logit are
+    sums over the model axis (the reference's one-hot branch). Under a
+    mesh with the batch sharded, this process's rows: the sum of their
+    terms and the count are summed over the batch axes, so every process
+    holds the mean over the global batch, and its gradient is this
+    process's share of the global one (``compat.reduce_from``: summing the
+    processes' gradients gives the whole)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    n, lo = _vocab_block(vocab)
+    if n == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    else:
+        axis = _model_axis()
+        top = compat.pmax(logits.detach().amax(dim=-1), axis)
+        logz = top + torch.log(compat.reduce_from(
+            torch.exp(logits - top[..., None]).sum(dim=-1), axis))
+        ids = labels - lo
+        mine = (ids >= 0) & (ids < logits.shape[-1])
+        picked = torch.gather(logits, -1, torch.where(
+            mine, ids, torch.zeros_like(ids))[..., None])[..., 0]
+        gold = compat.reduce_from(picked * mine.float(), axis)
     mask = (labels != ignore_id).float()
     nll = (logz - gold) * mask
+    ctx = get_context()
+    if ctx is not None and ctx.mesh is not None and ctx.batch_sharded:
+        count = compat.psum(mask.sum().detach(), ctx.batch_axes)
+        return compat.reduce_from(nll.sum(), ctx.batch_axes) \
+            / torch.clamp(count, min=1.0)
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -10,6 +10,16 @@ Decode is the O(1) single-step recurrence against the cached
 Parameters keep the JAX layout and dtypes: ``A_log``, ``D`` and
 ``dt_proj_b`` are float32 under bfloat16 weights, and the SSM state is
 float32 in both caches.
+
+Under a mesh each process holds its blocks (``models/common.py``): the
+channels of ``d_inner`` split over the model axis where they divide it
+(conv, ``dt_proj``, ``A_log``, ``D`` and the states by channel,
+``x_proj`` and ``out_proj`` by their input rows), and ``in_proj`` by its
+output columns. The (x, z) halves of ``in_proj``'s output do not fall on
+those blocks, so its column blocks are gathered and each process keeps
+its channels of both halves; ``x_proj``'s partial sums (dt, B, C) and
+``out_proj``'s are added over the axis. The scan runs on this process's
+channels.
 """
 from __future__ import annotations
 
@@ -19,8 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import compat
+from repro_torch.distributed.context import get_context
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.models.common import Params
+from repro_torch.models.common import (Params, model_blocks, tp_in, tp_out,
+                                       tp_whole)
 
 __all__ = ["make_mamba_params", "selective_scan", "mamba_forward",
            "mamba_prefill", "make_mamba_cache", "mamba_decode"]
@@ -55,7 +68,9 @@ def _ssm_inputs(p: Params, cfg: ModelConfig, xc: torch.Tensor
     dt (..., d_inner) f32; B, C (..., d_state) f32."""
     s = cfg.ssm
     dt_rank = s.resolved_dt_rank(cfg.d_model)
-    dbc = xc @ p["x_proj"]
+    n = model_blocks(s.expand * cfg.d_model)
+    # the channels' partial sums, then used by every process's channels
+    dbc = tp_in(tp_out(xc @ p["x_proj"], n), n)
     dt_low = dbc[..., :dt_rank]
     b_mat = dbc[..., dt_rank:dt_rank + s.d_state].float()
     c_mat = dbc[..., dt_rank + s.d_state:].float()
@@ -89,6 +104,20 @@ def _causal_conv(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b.to(out.dtype)
 
 
+def _in_proj(p: Params, cfg: ModelConfig, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, z) halves of ``in_proj``'s output, this process's channels."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    n_in, n = model_blocks(2 * d_inner), model_blocks(d_inner)
+    xz = tp_whole(tp_in(x, n_in) @ p["in_proj"], n_in, split_after=n > 1)
+    xc, z = xz.chunk(2, dim=-1)
+    if n > 1:
+        w = d_inner // n
+        i = compat.axis_index(get_context().model_axis)
+        xc, z = xc[..., i * w:(i + 1) * w], z[..., i * w:(i + 1) * w]
+    return xc, z
+
+
 def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:
     """Full-sequence mixer. x (B, S, D) -> (B, S, D)."""
@@ -103,8 +132,7 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor
     than K-1 gets its tail left-padded with zeros."""
     s = cfg.ssm
     seq = x.shape[1]
-    xz = x @ p["in_proj"]
-    xc, z = xz.chunk(2, dim=-1)
+    xc, z = _in_proj(p, cfg, x)
     conv_tail = xc[:, -(s.d_conv - 1):]     # pre-activation conv state
     if seq < s.d_conv - 1:
         conv_tail = F.pad(conv_tail, (0, 0, s.d_conv - 1 - seq, 0))
@@ -112,7 +140,7 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor
     dt, b_mat, c_mat = _ssm_inputs(p, cfg, xc)
     y, h_last = selective_scan(dt, p["A_log"], b_mat, c_mat, p["D"], xc)
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = tp_out(y @ p["out_proj"], model_blocks(s.expand * cfg.d_model))
     cache = {"conv": conv_tail.to(x.dtype), "ssm": h_last}
     return out, cache
 
@@ -137,8 +165,7 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step. x (B, 1, D); cache {conv (B,K-1,Di), ssm (B,Di,N)}
     is UPDATED IN PLACE (views into the caller's pool) and returned."""
-    xz = x @ p["in_proj"]
-    xc_new, z = xz.chunk(2, dim=-1)                     # (B,1,Di)
+    xc_new, z = _in_proj(p, cfg, x)                     # (B,1,Di)
     # the JAX concatenate promotes (a bf16 pool under f32 weights gives f32)
     ct = torch.promote_types(cache["conv"].dtype, xc_new.dtype)
     conv_in = torch.cat([cache["conv"].to(ct), xc_new.to(ct)], dim=1)
@@ -153,7 +180,8 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bin,bn->bi", h, c_mat[:, 0])
     y = y + xc[:, 0].float() * p["D"]
     y = y[:, None].to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = tp_out(y @ p["out_proj"],
+                 model_blocks(cfg.ssm.expand * cfg.d_model))
     cache["conv"].copy_(conv_in[:, 1:])
     cache["ssm"].copy_(h)
     return out, cache

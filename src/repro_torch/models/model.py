@@ -42,6 +42,20 @@ carries ``source_frames``) and the vision prefix (``batch`` carries
 ``forward`` returns the MoE layers' summed load-balance loss; prefill and
 decode discard it, as the reference does, and do not compute it.
 
+Under a mesh (``distributed.context``) every process holds its rows of
+the batch and computes on its blocks of the params
+(``distributed.sharding.local_params``: DTensors placed by the sharding
+rules, or whole tensors cut to the same blocks): the projections are
+tensor-parallel over the model axis (``models/common.py``), the experts
+split over the expert axis (``models/moe.py``), and the leaves the rules
+shard over a batch axis gathered for the call. ``forward``, ``prefill``
+and ``decode_step`` return logits gathered whole over the vocab;
+``train_loss`` keeps them split. ``constrain`` stands at the reference's
+sites. Two more paths split work over the mesh: ``decode_step`` with
+``flash_decode`` runs the sharded flash-decode (its cache is this
+process's sequence chunk), and attention whose heads do not tile the
+model axis runs sequence-parallel (``models/attention.py``).
+
 Activation recomputation (``remat``): where JAX wraps the scanned block in
 ``jax.checkpoint``, the port wraps each block of ``_run_blocks`` in
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``; the ``"dots"``
@@ -66,13 +80,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import to_tensor
 from repro_torch.core import certainty as cert_lib
+from repro_torch.distributed import compat
+from repro_torch.distributed.context import get_context, use_context
+from repro_torch.distributed.sharding import constrain, local_params
 from repro_torch.kernels.top2gap import argmax_gap
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (Params, apply_ffn, apply_norm,
                                        cross_entropy_loss, embed_tokens,
-                                       lm_logits)
+                                       lm_logits, vocab_whole)
 
 __all__ = ["LayerSpec", "block_pattern", "num_reps", "init_params",
            "encode", "forward", "train_loss", "prefill", "decode_step",
@@ -253,6 +270,12 @@ def _device(params: Params) -> torch.device:
     return params["embed"]["embedding"].device
 
 
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    """The LM head's logits, split over the vocab under a mesh."""
+    return lm_logits(params["embed"], x, cfg.tie_embeddings, cfg.vocab_size)
+
+
 def _array(a, device: torch.device) -> torch.Tensor:
     """A batch input (tensor or numpy array, bf16 numpy included) on
     ``device``, its dtype kept."""
@@ -297,10 +320,14 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
     elif mode == "prefill":
         mix, new_cache = attn.prefill_attention(p["attn"], cfg, h, positions,
                                                 cache_len)
+    elif attn.flash_decode_on(cfg):
+        mix, new_cache = attn.decode_attention_sharded(
+            p["attn"], cfg, h, cache, cache_index, get_context())
     else:
         mix, new_cache = attn.decode_attention(p["attn"], cfg, h, cache,
                                                cache_index)
     x = x + mix
+    x = constrain(x, "batch", None, None)
     if spec.cross:
         hc = apply_norm(p["cross_norm"], x, cfg.norm_type, cfg.norm_eps)
         x = x + attn.cross_attention_cached(p["cross"], cfg, hc,
@@ -308,11 +335,12 @@ def _apply_block(spec: LayerSpec, p: Params, cfg: ModelConfig,
     if spec.ffn != "none":
         h2 = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
         if spec.ffn == "dense":
-            out = apply_ffn(p["ffn"], h2, cfg.activation)
+            out = apply_ffn(p["ffn"], h2, cfg.activation, cfg.d_ff)
         else:
             out, aux = moe_lib.apply_moe(p["moe"], cfg, h2,
                                          with_aux=mode == "full")
         x = x + out
+        x = constrain(x, "batch", None, None)
     return x, new_cache, aux
 
 
@@ -383,15 +411,25 @@ def _checkpointed(policy: str, *args):
     """``_apply_block(*args)`` with its activations recomputed in the
     backward pass (``policy`` "full": all of them; "dots": all but the
     plain matrix products' outputs)."""
+    block = _apply_block
+    ctx = get_context()
+    if ctx is not None and ctx.mesh is not None:
+        # the recomputation may run on an autograd device thread, where the
+        # ambient context (thread-local) is not set: carry it over
+        manual = compat.manual_axes_of(ctx.mesh)
+
+        def block(*a):
+            with use_context(ctx), compat.manual(manual):
+                return _apply_block(*a)
     if policy == "dots":
         context = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)
-        return ckpt.checkpoint(_apply_block, *args, use_reentrant=False,
+        return ckpt.checkpoint(block, *args, use_reentrant=False,
                                context_fn=context)
     if policy != "full":
         raise ValueError(f"remat_policy must be 'full' or 'dots', got "
                          f"{policy!r}")
-    return ckpt.checkpoint(_apply_block, *args, use_reentrant=False)
+    return ckpt.checkpoint(block, *args, use_reentrant=False)
 
 
 def _stacked(tree):
@@ -409,13 +447,15 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
     after the projected ``prefix_embeddings`` where the batch has them;
     positions run over prefix and tokens together."""
     dev = _device(params)
-    x = embed_tokens(params["embed"], _tokens(batch["tokens"], dev))
+    x = embed_tokens(params["embed"], _tokens(batch["tokens"], dev),
+                     cfg.vocab_size)
     if "prefix_embeddings" in batch:
         pe = _array(batch["prefix_embeddings"], dev).to(x.dtype) \
             @ params["frontend_proj"]
         x = torch.cat([pe, x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x = constrain(x, "batch", None, None)
     return x, positions
 
 
@@ -427,6 +467,12 @@ def encode(params: Params, cfg: ModelConfig, source,
     (non-causal) self-attention blocks and the encoder's final norm,
     each block recomputed in the backward pass under ``remat``.
     Returns the memory (B, S_src, D)."""
+    return _encode(local_params(params), cfg, source, remat)
+
+
+def _encode(params: Params, cfg: ModelConfig, source, remat: bool
+            ) -> torch.Tensor:
+    """``encode`` on params already local (``local_params``)."""
     x = _array(source, _device(params))
     if "frontend_proj" in params and \
             x.shape[-1] == cfg.frontend.frontend_dim:
@@ -463,12 +509,30 @@ def _cross_kv(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     if not cfg.is_encoder_decoder:
         return None
     return _precompute_cross_kv(
-        params, cfg, encode(params, cfg, batch["source_frames"], remat))
+        params, cfg, _encode(params, cfg, batch["source_frames"], remat))
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+             remat: bool, logits_dtype: Optional[torch.dtype],
+             remat_policy: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` with the logits split over the vocab under a mesh."""
+    params = local_params(params)
+    cross_kv = _cross_kv(params, cfg, batch, remat)
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full",
+                            cross_kv=cross_kv, remat=remat,
+                            remat_policy=remat_policy)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    logits = _logits(params, cfg, x)
+    if logits_dtype is not None:
+        logits = logits.to(logits_dtype)
+    logits = constrain(logits, "batch", None, "vocab")
+    return logits, aux
+
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             remat: bool = False, logits_dtype: Optional[torch.dtype] = None,
@@ -480,16 +544,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     positions included; the MoE layers' summed aux loss (f32 scalar; 0
     without MoE layers)). ``remat`` recomputes every block (encoder
     included) in the backward pass, under ``remat_policy``."""
-    cross_kv = _cross_kv(params, cfg, batch, remat)
-    x, positions = _embed_inputs(params, cfg, batch)
-    x, _, aux = _run_blocks(params["blocks"], cfg, x, positions, "full",
-                            cross_kv=cross_kv, remat=remat,
-                            remat_policy=remat_policy)
-    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x, cfg.tie_embeddings)
-    if logits_dtype is not None:
-        logits = logits.to(logits_dtype)
-    return logits, aux
+    logits, aux = _forward(params, cfg, batch, remat, logits_dtype,
+                           remat_policy)
+    return vocab_whole(logits, cfg.vocab_size), aux
 
 
 def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -500,14 +557,13 @@ def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     prefix positions dropped, their token cross-entropy against
     ``batch["labels"]`` (B, S_text) plus ``aux_coef`` times the MoE aux
     loss. Returns (loss, {"ce", "aux_loss"})."""
-    logits, aux = forward(params, cfg, batch, remat=remat,
-                          logits_dtype=torch.bfloat16,
-                          remat_policy=remat_policy)
+    logits, aux = _forward(params, cfg, batch, remat, torch.bfloat16,
+                           remat_policy)
     labels = _tokens(batch["labels"], logits.device)
     prefix_len = logits.shape[1] - labels.shape[1]
     if prefix_len:
         logits = logits[:, prefix_len:]
-    ce = cross_entropy_loss(logits, labels)
+    ce = cross_entropy_loss(logits, labels, vocab=cfg.vocab_size)
     total = ce + aux_coef * aux
     return total, {"ce": ce, "aux_loss": aux}
 
@@ -520,6 +576,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     length (any modality prefix included). An explicit cache_len must cover
     the prompt and the prefix. An enc-dec batch runs the encoder once and
     keeps its cross K/V in ``cache["cross"]``."""
+    params = local_params(params)
     cross_kv = _cross_kv(params, cfg, batch)
     x, positions = _embed_inputs(params, cfg, batch)
     if cache_len is None:
@@ -533,7 +590,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                                "prefill", cross_kv=cross_kv,
                                cache_len=cache_len)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x[:, -1:], cfg.tie_embeddings)[:, 0]
+    logits = _logits(params, cfg, x[:, -1:])[:, 0]
+    logits = vocab_whole(constrain(logits, "batch", "vocab"), cfg.vocab_size)
     cache = {"blocks": caches}
     if cross_kv is not None:
         cache["cross"] = cross_kv
@@ -552,8 +610,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
     engine's bf16 pool under f32 weights) is first widened, once, to the
     promoted dtype: the JAX decode returns its conv state in that dtype,
     so the JAX engine's pool is widened by its first decode call too."""
+    params = local_params(params)
     dev = _device(params)
-    x = embed_tokens(params["embed"], _tokens(tokens, dev))
+    x = embed_tokens(params["embed"], _tokens(tokens, dev), cfg.vocab_size)
+    x = constrain(x, "batch", None, None)
     widen_ssm_cache(cache, x.dtype)
     b = x.shape[0]
     ci = torch.broadcast_to(torch.as_tensor(cache_index, device=dev), (b,))
@@ -561,7 +621,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Params,
                           "decode", caches=cache["blocks"],
                           cross_kv=cache.get("cross"), cache_index=ci)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x, cfg.tie_embeddings)[:, 0]
+    logits = _logits(params, cfg, x)[:, 0]
+    logits = vocab_whole(constrain(logits, "batch", "vocab"), cfg.vocab_size)
     return logits, cache
 
 
@@ -654,6 +715,7 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
         raise ValueError(
             f"{cfg.name}: bucketed prefill needs an attention-only decoder "
             f"(no SSM state, no MoE capacity routing, no enc-dec/frontend)")
+    params = local_params(params)
     x, positions = _embed_inputs(params, cfg, {"tokens": tokens})
     b, s = x.shape[0], x.shape[1]
     if cache_len < s:
@@ -679,8 +741,8 @@ def prefill_bucketed(params: Params, cfg: ModelConfig, tokens, true_lens,
     last_i = torch.clamp(torch.as_tensor(true_lens, device=x.device).long()
                          - 1, 0, s - 1)
     last = x[torch.arange(b, device=x.device), last_i]        # (B, D)
-    logits = lm_logits(params["embed"], last[:, None],
-                       cfg.tie_embeddings)[:, 0]
+    logits = _logits(params, cfg, last[:, None])[:, 0]
+    logits = vocab_whole(constrain(logits, "batch", "vocab"), cfg.vocab_size)
     return logits, None if into is not None else {"blocks": caches}
 
 

@@ -10,22 +10,33 @@ elements (a rep-stacked projection of a large model: falcon-mamba-7b's
 ``in_proj`` at 40 layers holds 2.7 G) is updated, and its share of the
 gradient norm summed, one flat slice at a time, so the float32
 temporaries of the update stay near a GiB whatever the leaf's size; each
-element's update is the same arithmetic either way. The reference's
-``opt_state_pspecs`` (ZeRO-1 sharding over the pod axis) waits for the
-distributed port.
+element's update is the same arithmetic either way.
+
+Sharded state (``opt_state_pspecs``, the reference's ZeRO-1): under a mesh
+the params and moments are DTensors placed by the sharding rules, and each
+moment is also split over the pod axis on its first unsharded dim. Then
+``adamw_update`` takes each leaf's block of the global gradient (a local
+tensor shaped like the param's local block, as ``make_train_step`` gives
+it): each process updates its block of each moment with the same
+element-wise math (walked in ``SLICE`` pieces) and the matching block of
+its param shard, and the new blocks are gathered over the pod axis into
+the param's shard. The gradient norm sums each block's squares over the
+mesh axes its leaf is split over.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import P, _map_axes
 
 __all__ = ["AdamWConfig", "lr_schedule", "init_opt_state", "global_norm",
-           "adamw_update"]
+           "adamw_update", "opt_state_pspecs"]
 
 Pytree = Any
 
@@ -84,13 +95,14 @@ def _slices(*ts: torch.Tensor):
         yield tuple(f[i:i + SLICE] for f in flat)
 
 
+def _sum_sq(leaf: torch.Tensor) -> torch.Tensor:
+    parts = [torch.sum(torch.square(s.float())) for (s,) in _slices(leaf)]
+    return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+
+
 def global_norm(tree: Pytree) -> torch.Tensor:
-    leaves = []
-    for leaf in tree_lib.leaves(tree):
-        parts = [torch.sum(torch.square(s.float())) for (s,) in _slices(leaf)]
-        leaves.append(parts[0] if len(parts) == 1
-                      else torch.sum(torch.stack(parts)))
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    return torch.sqrt(torch.sum(torch.stack(
+        [_sum_sq(leaf) for leaf in tree_lib.leaves(tree)])))
 
 
 def _is_decayable(path) -> bool:
@@ -105,24 +117,95 @@ def _is_decayable(path) -> bool:
                         "k_norm_scale")
 
 
+def _update_slices(p_leaf: torch.Tensor, g_leaf: torch.Tensor,
+                   m_leaf: torch.Tensor, v_leaf: torch.Tensor, decay: bool,
+                   cfg: AdamWConfig, clip, lr, bc1, bc2) -> None:
+    """One leaf's AdamW update, in place on p, m and v, slice by slice."""
+    for p, g, m, v in _slices(p_leaf, g_leaf, m_leaf, v_leaf):
+        gf = g.float() * clip
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
+        del gf
+        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        pf = p.float()
+        if decay:
+            update = update + cfg.weight_decay * pf
+        p.copy_(pf - lr * update)
+
+
+def _split_axes(t) -> Tuple[str, ...]:
+    """The mesh axes a DTensor is split over."""
+    return tuple(a for a, pl in zip(t.device_mesh.mesh_dim_names,
+                                    t.placements)
+                 if isinstance(pl, compat.Shard))
+
+
+def _global_norm_blocks(params: List, grads: List[torch.Tensor]
+                        ) -> torch.Tensor:
+    """The global gradient norm from each DTensor param's block of its
+    gradient: the blocks' squares summed, then over the axes each leaf is
+    split over (one sum per set of axes)."""
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for p, g in zip(params, grads):
+        sq = _sum_sq(g)
+        axes = _split_axes(p)
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    mesh = params[0].device_mesh
+    total = sum(compat.psum(v, axes, mesh) for axes, v in groups.items())
+    return torch.sqrt(total)
+
+
+def _update_block(p_dt, g: torch.Tensor, m_dt, v_dt, decay: bool,
+                  cfg: AdamWConfig, clip, lr, bc1, bc2) -> None:
+    """One DTensor leaf's update from its block ``g`` of the gradient.
+    Where the moments are split over more axes than the param (ZeRO-1's
+    pod axis), this process updates the moments' block of its shard and
+    the new blocks are gathered over those axes."""
+    mesh = p_dt.device_mesh
+    p_loc = p_dt.to_local()
+    extra = [(a, mp) for a, pp, mp in zip(mesh.mesh_dim_names,
+                                          p_dt.placements, m_dt.placements)
+             if pp != mp]
+    if not extra:
+        _update_slices(p_loc, g, m_dt.to_local(), v_dt.to_local(), decay,
+                       cfg, clip, lr, bc1, bc2)
+        return
+    _, p_off = compat.local_shape_and_offset(p_dt.shape, mesh,
+                                             p_dt.placements)
+    m_shape, m_off = compat.local_shape_and_offset(p_dt.shape, mesh,
+                                                   m_dt.placements)
+    block = tuple(slice(mo - po, mo - po + n)
+                  for mo, po, n in zip(m_off, p_off, m_shape))
+    new = p_loc[block].clone(memory_format=torch.contiguous_format)
+    _update_slices(new, g[block].contiguous(), m_dt.to_local(),
+                   v_dt.to_local(), decay, cfg, clip, lr, bc1, bc2)
+    for axis, mp in extra:
+        new = compat.all_gather(new, axis, dim=mp.dim, mesh=mesh)
+    p_loc.copy_(new)
+
+
 @torch.no_grad()
 def adamw_update(params: Pytree, grads: Pytree, state: Dict[str, Any],
-                 cfg: AdamWConfig) -> Tuple[Pytree, Dict[str, Any],
-                                            Dict[str, torch.Tensor]]:
+                 cfg: AdamWConfig
+                 ) -> Tuple[Pytree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params`` and ``state`` (see the
     module docstring). ``grads`` has the params' structure (or is the flat
-    list of their leaves in flatten order). Returns (params, state,
-    {"grad_norm", "lr"}), every scalar a tensor on the params' device."""
+    list of their leaves in flatten order): whole tensors, or where the
+    params are DTensors each leaf's block of the global gradient. Returns
+    (params, state, {"grad_norm", "lr"}), every scalar a tensor on the
+    params' device."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     flat_g = grads if isinstance(grads, list) else tree_lib.leaves(grads)
-    gnorm = global_norm(flat_g)
+    flat_p, _ = tree_lib.flatten_with_path(params)
+    sharded = bool(flat_p) and isinstance(flat_p[0][1], compat.DTensor)
+    gnorm = (_global_norm_blocks([p for _, p in flat_p], flat_g) if sharded
+             else global_norm(flat_g))
     clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
     t = step.float()
     bc1 = 1.0 - torch.pow(cfg.b1, t)
     bc2 = 1.0 - torch.pow(cfg.b2, t)
 
-    flat_p, _ = tree_lib.flatten_with_path(params)
     flat_m = tree_lib.leaves(state["m"])
     flat_v = tree_lib.leaves(state["v"])
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
@@ -131,15 +214,30 @@ def adamw_update(params: Pytree, grads: Pytree, state: Dict[str, Any],
     for (path, p_leaf), g_leaf, m_leaf, v_leaf in zip(flat_p, flat_g,
                                                       flat_m, flat_v):
         decay = _is_decayable(path)
-        for p, g, m, v in _slices(p_leaf, g_leaf, m_leaf, v_leaf):
-            gf = g.float() * clip
-            m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
-            del gf
-            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            pf = p.float()
-            if decay:
-                update = update + cfg.weight_decay * pf
-            p.copy_(pf - lr * update)
+        if sharded:
+            _update_block(p_leaf, g_leaf, m_leaf, v_leaf, decay, cfg, clip,
+                          lr, bc1, bc2)
+        else:
+            _update_slices(p_leaf, g_leaf, m_leaf, v_leaf, decay, cfg, clip,
+                           lr, bc1, bc2)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_pspecs(param_pspecs: Pytree, zero1_axis: Optional[str] = None
+                     ) -> Dict[str, Any]:
+    """Moment specs mirror the param specs; with ``zero1_axis`` the first
+    unsharded dim of each moment is additionally sharded over that axis
+    (ZeRO-1; see the module docstring)."""
+    def moment_spec(spec: P) -> P:
+        if zero1_axis is None:
+            return spec
+        parts = list(spec) if len(spec) else []
+        for i, axis in enumerate(parts):
+            if axis is None:
+                parts[i] = zero1_axis
+                return P(*parts)
+        return spec  # every dim already sharded
+
+    specs = _map_axes(moment_spec, param_pspecs)
+    return {"m": specs, "v": specs, "step": P()}

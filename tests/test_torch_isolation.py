@@ -2,8 +2,8 @@
 move to the CPU.
 
 * In a fresh interpreter, importing every ``repro_torch`` module (the
-  baselines, admission, scenarios, fleet, MoE and training modules among
-  them) and ``chip_smoke``, then a training step of the launcher on each
+  baselines, admission, scenarios, fleet, MoE, training and distributed
+  modules among them; the last start no process group) and ``chip_smoke``, then a training step of the launcher on each
   of the SSM, MoE and hybrid arch ids, leaves neither ``jax`` (nor
   ``jaxlib``) nor any ``repro`` module in ``sys.modules``.
 * The entry points default to ``device="cuda"``: without a CUDA device they
@@ -41,6 +41,10 @@ for arch in ('falcon-mamba-7b', 'qwen2-moe-a2.7b', 'jamba-v0.1-52b'):
                     '--steps', '1', '--batch', '1', '--seq', '8'])
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+# importing the distributed layer starts no process group
+import torch.distributed as td
+if td.is_available() and td.is_initialized():
+    bad.append('process-group-started')
 # the numpy layers copied last must be among the modules imported above
 for n in NEW_MODULES:
     if n not in names:
@@ -59,7 +63,11 @@ NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
                "repro_torch.training.train_step",
                "repro_torch.training.data", "repro_torch.checkpoint",
                "repro_torch.checkpoint.manager", "repro_torch.configs.shapes",
-               "repro_torch.launch.train", "repro_torch.tree")
+               "repro_torch.launch.train", "repro_torch.tree",
+               "repro_torch.distributed.context",
+               "repro_torch.distributed.compat",
+               "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+               "repro_torch.launch.steps")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

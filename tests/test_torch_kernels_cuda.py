@@ -421,15 +421,21 @@ def test_flash_attention_f32_kernel_at_hd80(cuda, mode, s):
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
-    """Causal and windowed calls need as many keys as queries; hd 96 has
-    no instantiation; nothing falls back to the plain version."""
+    """Causal and windowed calls need q_offset + Sq <= Sk (and the full
+    form no offset); hd 96 has no instantiation; nothing falls back to the
+    plain version."""
     q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(1, 12, 2, 64, device=cuda, dtype=torch.bfloat16)
     before = flash_attention.launches
     with pytest.raises(ValueError):
-        flash_attention(q, k, k, causal=True)
+        flash_attention(q, k, k, causal=True, q_offset=5)
     with pytest.raises(ValueError):
-        flash_attention(q, k, k, causal=True, window=4)
+        flash_attention(q, k, k, causal=True, window=4, q_offset=5)
+    with pytest.raises(ValueError):
+        flash_attention(k.repeat(1, 1, 2, 1), q[:, :, :2], q[:, :, :2],
+                        causal=True)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, causal=False, q_offset=1)
     wide = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(1, 8, 4, 96, device=cuda,
@@ -1460,3 +1466,100 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch, remat):
     assert out[0][3]["mamba_scan"] == 0
     assert out[1][3]["mamba_scan"] == ssm * (2 if remat else 1)
     assert out[1][3]["mamba_scan_bwd"] == ssm
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer's kernel forms: the decode kernel's log-sum-exp,
+# the sharded flash-decode's combine, flash with q_offset
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,kv,d,dtype", [(14, 2, 64, torch.bfloat16),
+                                          (64, 8, 128, torch.bfloat16),
+                                          (32, 8, 80, torch.float32)])
+def test_decode_attention_kernel_lse_form(cuda, h, kv, d, dtype):
+    """The LSE form's output bit-equal to a call without it; the LSE
+    within 1e-5 of the plain version's (f32, -inf exactly on a row with
+    no valid key, whose output is 0)."""
+    b, c = 6, 300
+    q, k, v = (torch.from_numpy(_rand(90 + i, s)).to(cuda, dtype)
+               for i, s in enumerate(((b, h, d), (b, c, kv, d),
+                                      (b, c, kv, d))))
+    vl = torch.tensor([0, 1, 64, 65, 299, 300], dtype=torch.int32,
+                      device=cuda)
+    out, lse = decode_attention(q, k, v, vl, return_lse=True)
+    plain = decode_attention(q, k, v, vl)
+    _, rlse = tref.decode_attention_ref(q.float(), k.float(), v.float(), vl,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert bool((out[0] == 0).all())
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+    fin = ~torch.isneginf(rlse)
+    torch.testing.assert_close(lse[fin], rlse[fin], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_flash_decode_shards_combine_on_the_card(cuda, n):
+    """n cache shards through ``_flash_decode_shard`` in turn, merged by
+    ``_combine_partials``: within 1e-5 of the unsplit f32 kernel."""
+    from repro_torch.models import attention as TA
+    b, h, kv, d, c = 4, 14, 2, 64, 256
+    q = torch.from_numpy(_rand(95, (b, h, d))).to(cuda)
+    kn, vn = (torch.from_numpy(_rand(96 + i, (b, kv, d))).to(cuda)
+              for i in range(2))
+    kc, vc = (torch.from_numpy(_rand(98 + i, (b, c, kv, d))).to(cuda)
+              for i in range(2))
+    ci = torch.tensor([0, 31, 200, 255], device=cuda)
+    rows = torch.arange(b, device=cuda)
+    k1, v1 = kc.clone(), vc.clone()
+    k1[rows, ci], v1[rows, ci] = kn, vn
+    want = decode_attention(q, k1, v1, (ci + 1).to(torch.int32))
+    chunk = c // n
+    parts = [TA._flash_decode_shard(q, kn, vn,
+                                    kc[:, r * chunk:(r + 1) * chunk],
+                                    vc[:, r * chunk:(r + 1) * chunk], ci,
+                                    r * chunk) for r in range(n)]
+    got = TA._combine_partials(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]),
+                               lambda t: t.amax(0), lambda t: t.sum(0))
+    torch.cuda.synchronize()
+    assert torch.equal(kc, k1) and torch.equal(vc, v1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,d,window", [(torch.bfloat16, 64, 0),
+                                            (torch.bfloat16, 128, 0),
+                                            (torch.float32, 64, 100),
+                                            (torch.bfloat16, 80, 100)])
+def test_flash_attention_q_offset_chunks_equal_slices(cuda, dtype, d,
+                                                      window):
+    """4 query chunks of 64 at their offsets, over the keys up to each
+    chunk's end: outputs and dq bit-equal to the unchunked kernels'
+    slices; the chunks' dk and dv sum to the unchunked ones within the
+    dtype's rounding."""
+    b, s, h, kv = 2, 256, 8, 2
+    q, k, v, do = (torch.from_numpy(_rand(60 + i, sh)).to(cuda, dtype)
+                   for i, sh in enumerate(((b, s, h, d), (b, s, kv, d),
+                                           (b, s, kv, d), (b, s, h, d))))
+    whole = flash_attention(q, k, v, window=window)
+    dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, whole, do,
+                                           window=window)
+    dk, dv = torch.zeros_like(k, dtype=torch.float32), \
+        torch.zeros_like(v, dtype=torch.float32)
+    c = s // 4
+    for r in range(4):
+        end = (r + 1) * c
+        qc, doc = q[:, r * c:end].contiguous(), do[:, r * c:end].contiguous()
+        part = flash_attention(qc, k[:, :end], v[:, :end], window=window,
+                               q_offset=r * c)
+        gq, gk, gv = flash_attention_bwd(qc, k[:, :end], v[:, :end], part,
+                                         doc, window=window, q_offset=r * c)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, r * c:end])
+        assert torch.equal(gq, dq_w[:, r * c:end])
+        dk[:, :end] += gk.float()
+        dv[:, :end] += gv.float()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for got, want in ((dk, dk_w), (dv, dv_w)):
+        scale = float(want.float().abs().max())
+        assert float((got - want.float()).abs().max()) <= tol * scale

@@ -18,7 +18,8 @@ arch id is covered here, MoE and SSM included.
   against JAX's, with remat off, on ("full") and "dots".
 * Microbatch equivalence on olmo-1b smoke in f32, and against JAX's
   microbatched step; the loss falling on qwen2-0.5b smoke; the "dots"
-  policy keeping the matmul outputs; ``compress_pod_grads`` refused; the
+  policy keeping the matmul outputs; ``compress_pod_grads`` without a
+  mesh the plain step; the
   launcher's checkpoint resume continuing the uninterrupted run bit for
   bit.
 
@@ -486,9 +487,22 @@ def test_dots_policy_keeps_the_matmul_outputs():
 
 
 def test_compress_pod_grads_is_refused():
-    with pytest.raises(NotImplementedError, match="distributed port"):
-        make_train_step(get_smoke_config("qwen2-0.5b"), AdamWConfig(),
-                        TrainStepConfig(compress_pod_grads=True))
+    """``compress_pod_grads`` needs a mesh with a 'pod' axis; without one
+    the step is the plain one, as the reference's (the multi-rank
+    exchange is held against JAX in ``tests/test_torch_distributed.py``).
+    An unknown remat policy is refused."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    batch = _batch(cfg, 0)
+    out = []
+    for compress in (False, True):
+        params = TM.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+        step = make_train_step(cfg, AdamWConfig(),
+                               TrainStepConfig(compress_pod_grads=compress))
+        params, _, metrics = step(params, init_opt_state(params), batch)
+        out.append((float(metrics["loss"]), tree_lib.leaves(params)))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     with pytest.raises(ValueError, match="remat_policy"):
         cfg = get_smoke_config("qwen2-0.5b")
         params = TM.init_params(cfg, seed=0, dtype=torch.float32,
