@@ -307,6 +307,21 @@ launch counts include graph replays.
              backward with ``q_offset`` (qwen2's training shape in 4 query
              chunks: outputs and dq bit-equal to the unchunked slices, an
              offset one late rejected).
+29. dryrun — the dry-run (``repro_torch.launch.dryrun.run_cell``): four
+             production-mesh cells (olmo-1b decode_32k on (16, 16) and
+             (2, 16, 16), falcon-mamba-7b long_500k, llama4-maverick
+             train_4k on (16, 16)) traced on fake tensors over a fake
+             256- or 512-rank process group, once with ``--device cuda``
+             (fake CUDA tensors: every kernel wrapper charged as its
+             kernel, nothing launched) and once with ``--device cpu``,
+             each in a process of its own (the fake group and the dist
+             phases' NCCL group cannot share one), the two at once. Each
+             cell's FLOPs, bytes, collective bytes by kind, peak memory
+             and kernel calls must be equal on both devices, and the
+             kernel calls as the path's formula; each cell's trace
+             seconds are printed. Each child resets the launch counts
+             before its cells and reports them after; both must be 0,
+             and the card's child's counts are the path's launches.
 
 The last lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -353,6 +368,8 @@ from repro_torch.models import common  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.profiling.flash_bwd_ab import rounding_scale  # noqa: E402
+# inputs are cycled through more than the L2 cache
+from repro_torch.profiling.hw import L2_BYTES  # noqa: E402
 from repro_torch.serving.token_engine import (SlotEngine,  # noqa: E402
                                               TokenEngine, TokenRequest,
                                               greedy_generate)
@@ -381,7 +398,6 @@ LSE_TOL = 1e-4            # the decode kernel's f32 LSE vs the plain version
 # roundings, at most 2^-8 relative each; P's rounding (flash only) is held
 # to P_ROUND_SIGMAS times its scale
 P_ROUND_SIGMAS = 6
-L2_BYTES = 50 * 2 ** 20   # inputs are cycled through more than this
 
 ARCH = "qwen2-0.5b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -4560,6 +4576,109 @@ def phase_dist_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 29: the dry-run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("olmo-1b", "decode_32k", "single"),
+                ("olmo-1b", "decode_32k", "multi"),
+                ("falcon-mamba-7b", "long_500k", "single"),
+                ("llama4-maverick-400b-a17b", "train_4k", "single"))
+# the row's fields that must not depend on the device the fakes stand for
+DRYRUN_FIELDS = ("status", "chips", "hlo_flops", "hlo_bytes",
+                 "collective_bytes", "collective_breakdown",
+                 "collective_bytes_cross_node", "t_collective_by_domain",
+                 "peak_memory_bytes", "memory_analysis", "kernel_calls",
+                 "dominant", "roofline_fraction")
+
+
+def _dryrun_child(device: str) -> dict:
+    """The dry-run's rows of DRYRUN_CELLS with the fakes on ``device``,
+    and the kernel launches counted while they were traced."""
+    from repro_torch.launch.dryrun import run_cell
+    K.reset_launch_counts()
+    rows = [run_cell(arch, shape, mesh, device=device)
+            for arch, shape, mesh in DRYRUN_CELLS]
+    return {"rows": rows, "launches": K.launch_counts()}
+
+
+def _dryrun_calls(arch: str, shape: str) -> dict:
+    """The kernels a cell's step charges: a decode step one decode
+    attention an attention layer and one top2gap; a train step (remat)
+    the flash forward twice and its backward once an attention layer."""
+    cfg = get_config(arch)
+    attn_layers = _attention_layers(cfg)
+    if shape == "train_4k":
+        return {"flash_attention": 2 * attn_layers,
+                "flash_attention_bwd": attn_layers}
+    return {**({"decode_attention": attn_layers} if attn_layers else {}),
+            "top2gap": 1}
+
+
+def phase_dryrun() -> dict:
+    """DRYRUN_CELLS traced twice, the fakes on the card and on the CPU,
+    each in a child process of its own (``--dryrun-child DEVICE``), both
+    at once; the rows must agree on DRYRUN_FIELDS, and neither child may
+    launch a kernel. Returns the launches the card's child counted."""
+    procs = {dev: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-child", dev],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for dev in ("cuda", "cpu")}
+    rows = {}
+    try:
+        for dev, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            lines = out.strip().splitlines()
+            check(proc.returncode == 0 and lines,
+                  f"dryrun child ({dev}) exited {proc.returncode}: "
+                  f"{err[-2000:]}")
+            rows[dev] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells = []
+    for (arch, shape, mesh), card, host in zip(
+            DRYRUN_CELLS, rows["cuda"]["rows"], rows["cpu"]["rows"]):
+        for row in (card, host):
+            check(row["status"] == "ok", f"dryrun {arch} {shape} {mesh}: "
+                  f"{row.get('error')} {row.get('traceback', '')[-1500:]}")
+        differ = [f for f in DRYRUN_FIELDS if card[f] != host[f]]
+        cells.append({"arch": arch, "shape": shape, "mesh": mesh,
+                      "chips": card["chips"],
+                      "flops_per_device": card["hlo_flops"],
+                      "bytes_per_device": card["hlo_bytes"],
+                      "collective_bytes_per_device":
+                          card["collective_breakdown"],
+                      "peak_memory_bytes": card["peak_memory_bytes"],
+                      "collective_bytes_cross_node":
+                          card["collective_bytes_cross_node"],
+                      "t_collective": card["t_collective"],
+                      "t_collective_by_domain":
+                          card["t_collective_by_domain"],
+                      "dominant": card["dominant"],
+                      "roofline_fraction": card["roofline_fraction"],
+                      "kernel_calls": card["kernel_calls"],
+                      "trace_seconds_cuda": card["compile_seconds"],
+                      "trace_seconds_cpu": host["compile_seconds"],
+                      "fields_that_differ": differ})
+    launches = {dev: rows[dev]["launches"] for dev in rows}
+    emit({"phase": "dryrun", "fields_compared": list(DRYRUN_FIELDS),
+          "launches": launches, "cells": cells})
+    for dev, got in launches.items():
+        check(not any(got.values()),
+              f"dryrun ({dev}) launched no kernel: {got}")
+    for cell in cells:
+        what = f"dryrun {cell['arch']} {cell['shape']} {cell['mesh']}"
+        check(not cell["fields_that_differ"], f"{what}: the cuda row equals "
+              f"the cpu row ({cell['fields_that_differ']} differ)")
+        want = _dryrun_calls(cell["arch"], cell["shape"])
+        check(cell["kernel_calls"] == want,
+              f"{what}: kernel calls {cell['kernel_calls']} == {want}")
+    return launches["cuda"]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     smi = phase_device()
@@ -4611,6 +4730,9 @@ def main() -> int:
     paths["serve_tiny"], tiny = phase_serve_tiny(dev)
     paths["serve_baselines"] = phase_serve_baselines(tiny)
     paths["serve_tenants"] = phase_serve_tenants(tiny)
+    # the dry-run launches nothing (every wrapper is charged, not run):
+    # its child counts that, and the phase requires 0
+    paths["dryrun"] = phase_dryrun()
     sources = {
         "top2gap": ("src/repro_torch/kernels/csrc/top2gap.cu",
                     "src/repro/kernels/top2gap.py:79"),
@@ -4682,5 +4804,8 @@ if __name__ == "__main__":
         sys.exit(2)
     if sys.argv[1:2] == ["--train-resume-child"]:
         print(json.dumps(_train_resume_child(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        print(json.dumps(_dryrun_child(sys.argv[2])), flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -25,8 +25,10 @@ differentiable ones say what their backward is, Megatron-style:
 * ``all_to_all``           — its backward is the reverse exchange.
 
 ``local_map`` (the counterpart of ``shard_map`` over DTensors) and the
-DTensor types are re-exported from here, and ``local_shape_and_offset``
-wraps the helper that says which block of a global tensor a rank holds.
+DTensor types are re-exported from here; ``local_shape_and_offset`` says
+which block of a global tensor a rank holds (in Python, so that it also
+works on fake tensors), and ``fake_process_group`` starts the process group
+of the dry-run, which communicates nothing (``launch/dryrun.py``).
 ``supports_partial_manual()`` is True: a process can always leave some
 mesh axes to DTensor while it runs collectives over others. ``manual``
 marks axes as manual for the code it wraps (the pod-manual gradient
@@ -49,7 +51,8 @@ from torch.distributed.tensor.experimental import local_map
 
 __all__ = ["DeviceMesh", "init_device_mesh", "DTensor", "Replicate",
            "Shard", "distribute_tensor", "local_map",
-           "local_shape_and_offset", "supports_partial_manual", "manual",
+           "local_shape_and_offset", "fake_process_group", "forget_meshes",
+           "supports_partial_manual", "manual",
            "manual_axes_of", "get_abstract_mesh", "axis_size", "axis_index",
            "psum", "pmax", "pmean", "all_gather", "reduce_scatter",
            "all_to_all", "copy_to", "reduce_from", "gather_from"]
@@ -61,12 +64,36 @@ def local_shape_and_offset(shape: Sequence[int], mesh: DeviceMesh,
                            placements) -> Tuple[Tuple[int, ...],
                                                 Tuple[int, ...]]:
     """(local shape, global offset) of this rank's block of a tensor of
-    ``shape`` placed on ``mesh`` by ``placements``."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    lshape, offset = compute_local_shape_and_global_offset(
-        tuple(shape), mesh, list(placements))
+    ``shape`` placed on ``mesh`` by ``placements``: each ``Shard`` cuts the
+    block it is given, mesh dim by mesh dim from the left, as
+    ``torch.chunk`` does (blocks of ``ceil(n / size)``, the last ones short
+    or empty; an empty block's offset is the dim's length). The same
+    values as ``torch.distributed.tensor._utils.
+    compute_local_shape_and_global_offset``, which on fake tensors raises
+    (it computes the offsets as tensors)."""
+    coord = mesh.get_coordinate()
+    lshape, offset = list(shape), [0] * len(shape)
+    for mesh_dim, place in enumerate(placements):
+        if not isinstance(place, Shard):
+            continue
+        d, n = place.dim, mesh.size(mesh_dim)
+        block = -(-lshape[d] // n)
+        start = min(coord[mesh_dim] * block, lshape[d])
+        size = max(0, min(lshape[d], start + block) - start)
+        offset[d] = offset[d] + start if size else shape[d]
+        lshape[d] = size
     return tuple(lshape), tuple(offset)
+
+
+def fake_process_group(world_size: int, rank: int = 0) -> None:
+    """Start this process's default process group as ``world_size`` ranks
+    that communicate nothing (torch's ``fake`` backend, from its private
+    testing package): every collective returns at once with its output
+    tensors as they were, so one process can trace a step of any rank of a
+    job at any size. The dry-run's only use."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
 
 
 def supports_partial_manual() -> bool:
@@ -113,6 +140,15 @@ def _mesh() -> Optional[DeviceMesh]:
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def forget_meshes() -> None:
+    """Drop what ``axis_size``, ``axis_index`` and the collectives have
+    read from meshes (each axis's process group and this process's
+    coordinate): due after the default process group is destroyed, since
+    a mesh built on a new group compares equal to an old one of the same
+    shape."""
+    _axis_info.cache_clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,14 +244,15 @@ def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
                    mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """Sum over the processes of ``axis``, each keeping its block of the
     sum along ``dim`` (the blocks in process order): the transpose of a
-    tiled ``all_gather``. NCCL reduce-scatters; gloo, which has no
-    reduce-scatter, all-reduces and keeps the block."""
+    tiled ``all_gather``. NCCL (and the dry-run's fake group)
+    reduce-scatters; gloo, which has no reduce-scatter, all-reduces and
+    keeps the block."""
     groups = _groups(axis, mesh)
     if not groups:
         return x
     group, n = groups[0]
     i = axis_index(axis, mesh)
-    if dist.get_backend(group) != "nccl":
+    if dist.get_backend(group) == "gloo":
         return _all_reduce(x, axis, dist.ReduceOp.SUM, mesh).narrow(
             dim, i * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
     send = x.movedim(dim, 0).contiguous()

@@ -11,6 +11,16 @@ one lock; a recording belongs to the thread that captures.
 
 A wrapper whose kernel has no backward calls ``forward_only`` before it
 launches: a launch returns an output without a ``grad_fn``.
+
+``counter()`` is the dry-run's cost counter (``profiling/trace_cost.py``
+``TraceCost``) where one is active on the calling thread, else None. A
+``TraceCost`` is a dispatch mode: it sits on the thread's dispatch-mode
+stack, which autograd carries to the thread a backward runs on, so the
+counter of a traced step reaches its backward too, and no other thread
+sees it. Each wrapper asks first: under a counter it launches nothing
+and hands the call to ``counter().charged``, which charges the call as
+its kernel (fake tensors only); with none, one look at the stack's
+length is all the wrapper adds.
 """
 from __future__ import annotations
 
@@ -19,11 +29,25 @@ import threading
 from typing import Callable, Dict, Iterator
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
-__all__ = ["forward_only", "launched", "recording", "replayed", "reset"]
+__all__ = ["counter", "forward_only", "launched", "recording", "replayed",
+           "reset"]
 
 _lock = threading.Lock()
 _local = threading.local()
+
+
+def counter():
+    """The cost counter active on this thread (the innermost dispatch mode
+    with ``charges_kernels`` set: a ``trace_cost.TraceCost``), else
+    None."""
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "charges_kernels", False):
+            return mode
+    return None
 
 
 def launched(wrapper: Callable) -> None:

@@ -7,7 +7,9 @@ reads the model's ``(B, C, KV, hd)`` per-layer cache view in place, by
 strides, so a decode step makes no transpose. On a CPU tensor it runs the
 plain version (``ref.decode_attention_ref``); on a CUDA tensor it launches
 the kernel or raises (also where an input requires grad: the kernel has
-no backward, ``counts.forward_only``). One launch splits each row's
+no backward, ``counts.forward_only``); under the dry-run's cost counter
+it launches nothing and is charged as its kernel (``counts.counter()``).
+One launch splits each row's
 positions over a cluster of 8 blocks per KV head and merges their
 partials on chip. With ``return_lse=True`` the merging block also writes
 each row's log-sum-exp, the partial that a sharded flash-decode combines
@@ -51,6 +53,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and with ``return_lse`` also the rows' log-sum-exp of their scaled
     scores (B, H) f32 (-inf where a row has no valid slot). The output is
     the same either way."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged(
+            "decode_attention", lambda: (q.new_empty(q.shape), q.new_empty(
+                q.shape[:2], dtype=torch.float32)) if return_lse
+            else q.new_empty(q.shape), q, k, v, valid_len, return_lse)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":

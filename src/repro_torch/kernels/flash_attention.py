@@ -24,6 +24,13 @@ own wrapper. Every other CUDA call launches the forward alone, as serving
 always has. On the CPU autograd runs through the plain version. Under
 activation recomputation a block's forward runs again in the backward
 pass, and that launch is counted like any other.
+
+Under the dry-run's cost counter (``counts.counter()``) nothing is
+launched on either device: a call goes through the same autograd
+Function (or the forward alone), and the forward and backward are each
+charged as their kernel, on fake tensors only (``profiling/
+trace_cost.py``); the checks that read addresses are skipped, as fakes
+have none.
 """
 from __future__ import annotations
 
@@ -61,12 +68,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     j > q_offset + i - window), which needs Sk == q_offset + Sq;
     ``causal=False`` sees every key. Differentiable on both devices (see
     the module docstring)."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, causal, window, q_offset)
+    if counts.counter() is None:
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: unsupported device "
+                             f"{q.device}")
+        _check(q, k, v, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _forward(q, k, v, causal, window, q_offset)
@@ -103,7 +112,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, window: int, q_offset: int) -> torch.Tensor:
-    """One launch of the forward kernel on checked CUDA tensors."""
+    """One launch of the forward kernel on checked CUDA tensors (under
+    the cost counter: one charged call, on either device)."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged("flash_attention", lambda: q.new_empty(q.shape),
+                            q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
     b, s, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -149,7 +164,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and dtype. On a CPU tensor it runs the plain version
     (``ref.flash_attention_bwd_ref``); on a CUDA tensor it launches
     ``csrc/flash_attention_bwd.cu`` (two kernels, counted as one launch)
-    or raises. Both read D_i = dO_i . o_i from the ``o`` given."""
+    or raises. Both read D_i = dO_i . o_i from the ``o`` given. Under the
+    cost counter it is charged as its kernel."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged(
+            "flash_attention_bwd", lambda: (
+                q.new_empty(q.shape), k.new_empty(k.shape),
+                v.new_empty(v.shape)), q, k, v, o, dout, causal=causal,
+            window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
                                            window=window, q_offset=q_offset)

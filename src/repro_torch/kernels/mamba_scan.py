@@ -17,6 +17,13 @@ serving always has. Under activation recomputation a block's forward runs
 again in the backward pass, and that launch is counted like any other.
 The decode step is a single recurrence and needs no kernel
 (``models/mamba.py`` ``mamba_decode``).
+
+Under the dry-run's cost counter (``counts.counter()``) nothing is
+launched on either device: a call goes through the same autograd
+Function (or the forward alone), and the forward and backward are each
+charged as their kernel, on fake tensors only (``profiling/
+trace_cost.py``); the checks that read addresses are skipped, as fakes
+have none.
 """
 from __future__ import annotations
 
@@ -59,11 +66,13 @@ def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     (B, S, N) f32, d_vec (Di,) f32, x (B, S, Di) f32 or bf16, h0 (B, Di, N)
     f32 or None (zero state) -> (y (B, S, Di) f32, h_last (B, Di, N) f32).
     Differentiable on both devices (see the module docstring)."""
-    if x.device.type == "cpu":
-        return ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba_scan: unsupported device {x.device}")
-    strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
+    strides = None
+    if counts.counter() is None:
+        if x.device.type == "cpu":
+            return ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)
+        if x.device.type != "cuda":
+            raise ValueError(f"mamba_scan: unsupported device {x.device}")
+        strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (dt, a, b_mat, c_mat, d_vec, x, h0)):
@@ -112,7 +121,15 @@ def _forward(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
              h0: Optional[torch.Tensor], strides: Tuple[int, ...]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel on CUDA tensors that ``_check``
-    passed (``strides``: what it returned)."""
+    passed (``strides``: what it returned); under the cost counter one
+    charged call, on either device."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged("mamba_scan", lambda: (
+                x.new_empty(x.shape, dtype=torch.float32),
+                x.new_empty((x.shape[0], x.shape[2], a.shape[1]),
+                            dtype=torch.float32)),
+            dt, a, b_mat, c_mat, d_vec, x, h0)
     bsz, s, d_inner = x.shape
     n = a.shape[1]
     y = torch.empty((bsz, s, d_inner), dtype=torch.float32, device=x.device)
@@ -164,7 +181,14 @@ def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     dtype and the rest f32, dh0 None where h0 is None. On a CPU tensor it
     runs the plain version (``ref.mamba_scan_bwd_ref``); on a CUDA tensor
     it launches ``csrc/mamba_scan_bwd.cu`` (two kernels, counted as one
-    launch) or raises."""
+    launch) or raises. Under the cost counter it is charged as its
+    kernel."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged("mamba_scan_bwd", lambda: tuple(
+                None if t is None else t.new_empty(t.shape)
+                for t in (dt, a, b_mat, c_mat, d_vec, x, h0)),
+            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last)
     if x.device.type == "cpu":
         return ref.mamba_scan_bwd_ref(dt, a, b_mat, c_mat, d_vec, x, h0, dy,
                                       dh_last)

@@ -7,7 +7,8 @@ the greedy token): each step hands the host (B,) tokens and gaps instead of
 (B, V) logits. On a CPU tensor the wrapper runs the plain version
 (``ref.top2gap_ref``); on a CUDA tensor it launches the kernel or raises
 (also where an input requires grad: the kernel has no backward,
-``counts.forward_only``).
+``counts.forward_only``). Under the dry-run's cost counter it launches
+nothing and is charged as its kernel (``counts.counter()``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,11 @@ def load():
 def top2gap(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores (B, V) f32 or bf16 -> (gap (B,) f32, argmax (B,) i32); an
     exact top-1 tie gives gap 0 and the lowest index."""
+    cost = counts.counter()
+    if cost is not None:
+        return cost.charged("top2gap", lambda: (
+            scores.new_empty(scores.shape[:1], dtype=torch.float32),
+            scores.new_empty(scores.shape[:1], dtype=torch.int32)), scores)
     if scores.device.type == "cpu":
         return ref.top2gap_ref(scores)
     if scores.device.type != "cuda":

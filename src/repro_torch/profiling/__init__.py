@@ -1,7 +1,9 @@
 """Analytic cost model on H100 constants (counterpart of
-``repro/profiling``; the HLO-parsing ``roofline`` and ``hlo_cost`` modules
-serve only the dry-run and are not ported yet). ``decode_ab`` is a
-script that times two builds of the decode-attention kernel on the card."""
+``repro/profiling``). The dry-run's cost comes from ``trace_cost`` (the
+counterpart of the HLO-parsing ``hlo_cost``: it counts a step traced on
+fake tensors) and ``roofline`` turns it into the roofline row.
+``decode_ab`` and ``flash_bwd_ab`` are scripts that time two builds of a
+kernel on the card."""
 from repro_torch.profiling import hw
 from repro_torch.profiling.cost_model import (analytic_runtime, model_flops,
                                               profile_from_cost_model)

@@ -29,9 +29,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _ARGS, decode_attention
+from repro_torch.profiling.hw import L2_BYTES
 
 KEY = "decode_attention.decode_attention_launch"
-L2_BYTES = 50 * 2 ** 20
 RAGGED = (1, 2, 100, 256, 300, 511, 512, 512)
 # (row, B, H, KV, hd, C, valid lengths, dtype): chip_smoke's decode rows
 SHAPES = (

@@ -40,7 +40,8 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (_BWD_ARGS,
                                                  flash_attention_bwd)
-from repro_torch.profiling.decode_ab import L2_BYTES, _device_ms
+from repro_torch.profiling.decode_ab import _device_ms
+from repro_torch.profiling.hw import L2_BYTES
 
 KEY = "flash_attention_bwd.flash_attention_bwd_launch"
 ROUND_SIGMAS = 6

@@ -52,9 +52,10 @@ for n in NEW_MODULES:
 print(len(names), ' '.join(bad))
 """
 # the serving layer's numpy copies (baselines, admission, scenarios, the
-# elastic fleet), the mixture-of-experts FFN, and the training path
+# elastic fleet), the mixture-of-experts FFN, the training path
 # (optimizer, train step, synthetic data, checkpoints, shape cells, the
-# train launcher)
+# train launcher), the distributed layer and the dry-run (its launcher,
+# cost counter and roofline)
 NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
                "repro_torch.serving.baselines", "repro_torch.distributed",
                "repro_torch.distributed.fault_tolerance",
@@ -67,7 +68,9 @@ NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
                "repro_torch.distributed.context",
                "repro_torch.distributed.compat",
                "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
-               "repro_torch.launch.steps")
+               "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+               "repro_torch.profiling.trace_cost",
+               "repro_torch.profiling.roofline")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
