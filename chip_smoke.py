@@ -105,6 +105,13 @@ launch counts include graph replays.
              window, ``graphs_vs_eager`` (fused decode only: the prefills
              are eager) and ``path_summary`` end the phase. Prefill time
              per prompt length and the peak device memory are printed.
+             Then one ``prefill`` of stage a's weights at B 1, S 4,096
+             (``repro_torch/profiling/prefill_peak.py`` ``measure``): its
+             peak allocation above the memory in use before it must lie
+             under the bound from the shapes (the cache twice, one SSM
+             layer's activations as 8 in_proj outputs, 256 MiB of
+             slack), well under the 8.6 GB that 64 layers' projections
+             would add if each layer's cache kept its projection alive.
 6. serve_qwen3 — after the SSM params are freed, the heterogeneous
              cascade the serve CLI's ``--workload qwen`` names: full-width
              qwen2-0.5b at stage a, full-width qwen3-32b at stage b (64
@@ -307,10 +314,14 @@ launch counts include graph replays.
              backward with ``q_offset`` (qwen2's training shape in 4 query
              chunks: outputs and dq bit-equal to the unchunked slices, an
              offset one late rejected).
-29. dryrun — the dry-run (``repro_torch.launch.dryrun.run_cell``): four
+29. dryrun — the dry-run (``repro_torch.launch.dryrun.run_cell``): six
              production-mesh cells (olmo-1b decode_32k on (16, 16) and
              (2, 16, 16), falcon-mamba-7b long_500k, llama4-maverick
-             train_4k on (16, 16)) traced on fake tensors over a fake
+             train_4k, internvl2-1b train_4k (a vocab of 151,655 that
+             does not tile the 16-wide model axis: its logits in padded
+             blocks) and falcon-mamba-7b prefill_32k (each layer's conv
+             tail copied out of its projection) on (16, 16); each must
+             peak under 80 GB a card) traced on fake tensors over a fake
              256- or 512-rank process group, once with ``--device cuda``
              (fake CUDA tensors: every kernel wrapper charged as its
              kernel, nothing launched) and once with ``--device cpu``,
@@ -370,6 +381,7 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.profiling.flash_bwd_ab import rounding_scale  # noqa: E402
 # inputs are cycled through more than the L2 cache
 from repro_torch.profiling.hw import L2_BYTES  # noqa: E402
+from repro_torch.profiling import prefill_peak  # noqa: E402
 from repro_torch.serving.token_engine import (SlotEngine,  # noqa: E402
                                               TokenEngine, TokenRequest,
                                               greedy_generate)
@@ -2041,6 +2053,12 @@ def phase_serve_ssm(dev) -> dict:
     emit({"phase": "memory_ssm",
           "max_memory_allocated_bytes": summary["max_memory_allocated_bytes"],
           "param_bytes_two_stages": 2 * summary["param_bytes_per_stage"]})
+    peak = prefill_peak.measure(params["a"], cfg)
+    emit({"phase": "ssm_prefill_peak", **peak})
+    check(peak["logits_finite"], "ssm_prefill_peak: finite logits")
+    check(peak["peak_bytes"] <= peak["bound_bytes"],
+          f"ssm_prefill_peak: {peak['peak_bytes']} bytes above the memory "
+          f"in use before the prefill <= bound {peak['bound_bytes']}")
     phase_teacher_forced_f32(dev, _widen(params["a"]), cfg, reqs,
                              "serve_ssm")
     return summary
@@ -4582,7 +4600,10 @@ def phase_dist_train(dev) -> dict:
 DRYRUN_CELLS = (("olmo-1b", "decode_32k", "single"),
                 ("olmo-1b", "decode_32k", "multi"),
                 ("falcon-mamba-7b", "long_500k", "single"),
-                ("llama4-maverick-400b-a17b", "train_4k", "single"))
+                ("llama4-maverick-400b-a17b", "train_4k", "single"),
+                ("internvl2-1b", "train_4k", "single"),
+                ("falcon-mamba-7b", "prefill_32k", "single"))
+DRYRUN_PEAK_LIMIT = 80e9      # bytes a card: the H100's 80 GB
 # the row's fields that must not depend on the device the fakes stand for
 DRYRUN_FIELDS = ("status", "chips", "hlo_flops", "hlo_bytes",
                  "collective_bytes", "collective_breakdown",
@@ -4604,12 +4625,20 @@ def _dryrun_child(device: str) -> dict:
 def _dryrun_calls(arch: str, shape: str) -> dict:
     """The kernels a cell's step charges: a decode step one decode
     attention an attention layer and one top2gap; a train step (remat)
-    the flash forward twice and its backward once an attention layer."""
+    the flash forward twice and its backward once an attention layer; a
+    prefill one flash forward an attention layer, one scan an SSM layer
+    and one top2gap."""
     cfg = get_config(arch)
     attn_layers = _attention_layers(cfg)
     if shape == "train_4k":
         return {"flash_attention": 2 * attn_layers,
                 "flash_attention_bwd": attn_layers}
+    if shape == "prefill_32k":
+        ssm_layers = sum(1 for i in range(cfg.num_layers)
+                         if not cfg.layer_is_attention(i))
+        return {**({"flash_attention": attn_layers} if attn_layers else {}),
+                **({"mamba_scan": ssm_layers} if ssm_layers else {}),
+                "top2gap": 1}
     return {**({"decode_attention": attn_layers} if attn_layers else {}),
             "top2gap": 1}
 
@@ -4675,6 +4704,9 @@ def phase_dryrun() -> dict:
         want = _dryrun_calls(cell["arch"], cell["shape"])
         check(cell["kernel_calls"] == want,
               f"{what}: kernel calls {cell['kernel_calls']} == {want}")
+        check(cell["peak_memory_bytes"] < DRYRUN_PEAK_LIMIT,
+              f"{what}: peak {cell['peak_memory_bytes']} bytes a card "
+              f"< {DRYRUN_PEAK_LIMIT:.0f}")
     return launches["cuda"]
 
 

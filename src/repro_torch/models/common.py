@@ -13,11 +13,14 @@ then tensor-parallel, Megatron-style: a column-split weight takes its
 input through ``tp_in`` (``compat.copy_to``: its gradient summed over the
 model axis), a row-split one gives partial sums that ``tp_out``
 (``compat.reduce_from``) adds up. The embedding table and the LM head
-are split over the vocab, and the cross-entropy takes vocab-split logits.
+are split over the vocab where it tiles the model axis, and whole on
+every process where it does not; the logits are split over the vocab in
+either case, as GSPMD splits them (``vocab_blocks``: padded blocks where
+the vocab does not tile), and the cross-entropy takes vocab-split logits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +34,7 @@ Params = Dict[str, Any]
 __all__ = ["Params", "apply_norm", "rope_frequencies", "apply_rope",
            "apply_ffn", "embed_tokens", "lm_logits", "cross_entropy_loss",
            "model_blocks", "tp_in", "tp_out", "tp_whole", "tp_own",
-           "vocab_whole"]
+           "vocab_blocks", "vocab_whole"]
 
 
 def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
@@ -122,10 +125,54 @@ def apply_ffn(p: Params, x: torch.Tensor, activation: str = "silu",
 
 
 def _vocab_block(vocab: int):
-    """(blocks, this process's first row) of a vocab of ``vocab`` rows."""
+    """(blocks, this process's first row) of the embedding table (and LM
+    head) of ``vocab`` rows: split over the model axis where the vocab
+    tiles it, else whole."""
     n = model_blocks(vocab) if vocab else 1
     return n, (compat.axis_index(_model_axis()) * (vocab // n) if n > 1
                else 0)
+
+
+def vocab_blocks(vocab: int) -> Tuple[int, int, int, int]:
+    """(blocks n, block width b, this process's first column lo, the end
+    of its real columns hi) of the logits over a vocab of ``vocab``
+    columns: under a model axis of n > 1 processes each holds b = ceil(V
+    / n) columns, [lo, hi) = [r b, min((r + 1) b, V)) of them real and
+    the rest padding, as GSPMD pads an uneven split (a block may be all
+    padding, hi = lo); without one (or with ``vocab`` 0), (1, V, 0, V).
+    Where V tiles the axis these are the table's blocks."""
+    ctx = get_context()
+    n = (compat.axis_size(ctx.model_axis, ctx.mesh)
+         if vocab and ctx is not None and ctx.mesh is not None else 1)
+    if n == 1:
+        return 1, vocab, 0, vocab
+    b = -(-vocab // n)
+    lo = compat.axis_index(ctx.model_axis) * b
+    return n, b, lo, max(lo, min(lo + b, vocab))
+
+
+class _HeadColumns(torch.autograd.Function):
+    """Columns [lo, hi) of a (D, V) head that every process of the model
+    axis holds whole: a view. Backward: the processes' gradient blocks,
+    each padded to b columns, gathered over the axis and cut to V, so that
+    each holds the whole gradient of the replicated head. ``tp_own``'s
+    pattern (``compat.copy_to`` then the slice) gives the same gradient,
+    but by an all-reduce of a zero-filled (D, V) gradient: about 2 V D
+    elements a process moved against the gather's V D, twice the
+    backward's collective bytes on the head."""
+
+    @staticmethod
+    def forward(ctx, w, lo, hi, b):
+        ctx.form = (hi - lo, b, w.shape[-1], _model_axis(),
+                    get_context().mesh)
+        return w[..., lo:hi]
+
+    @staticmethod
+    def backward(ctx, g):
+        width, b, vocab, axis, mesh = ctx.form
+        g = F.pad(g, (0, b - width))
+        whole = compat.all_gather(g, axis, g.dim() - 1, mesh=mesh)
+        return whole[..., :vocab], None, None, None
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, vocab: int = 0
@@ -149,18 +196,27 @@ def embed_tokens(p: Params, tokens: torch.Tensor, vocab: int = 0
 def lm_logits(p: Params, x: torch.Tensor, tie: bool, vocab: int = 0
               ) -> torch.Tensor:
     """Final logits in float32: the product runs in the activation dtype.
-    Where the head (the embedding table when tied) is split over the
-    vocab, this process's block of the logits (the reference's
-    ``constrain(logits, "batch", "vocab")``)."""
+    Under a mesh, this process's block of the logits (``vocab_blocks``;
+    the reference's ``constrain(logits, "batch", "vocab")``): the product
+    with its block of a split head, or with its columns of a whole one,
+    the padding past the vocab zeros."""
     w = p["embedding"].T if tie else p["lm_head"]
-    n, _ = _vocab_block(vocab)
-    return (tp_in(x, n) @ w.to(x.dtype)).float()
+    n, b, lo, hi = vocab_blocks(vocab)
+    if n > 1 and _vocab_block(vocab)[0] == 1:
+        w = _HeadColumns.apply(w, lo, hi, b)
+    y = tp_in(x, n) @ w.to(x.dtype)
+    if hi - lo < b:
+        y = F.pad(y, (0, b - (hi - lo)))
+    return y.float()
 
 
 def vocab_whole(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Logits split over the vocab (``lm_logits``) gathered whole."""
-    n, _ = _vocab_block(vocab)
-    return tp_whole(logits, n, split_after=False)
+    """Logits split over the vocab (``lm_logits``) gathered whole, the
+    padding cut off."""
+    n, _, _, _ = vocab_blocks(vocab)
+    if n == 1:
+        return logits
+    return tp_whole(logits, n, split_after=False)[..., :vocab].contiguous()
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -168,26 +224,31 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy in float32: logsumexp minus the gold logit,
     masked where the label is ``ignore_id``, over max(count, 1). logits
     (B, S, V), labels (B, S). Where the logits are split over the vocab
-    (``vocab``: the whole count), the logsumexp and the gold logit are
-    sums over the model axis (the reference's one-hot branch). Under a
-    mesh with the batch sharded, this process's rows: the sum of their
-    terms and the count are summed over the batch axes, so every process
-    holds the mean over the global batch, and its gradient is this
-    process's share of the global one (``compat.reduce_from``: summing the
-    processes' gradients gives the whole)."""
+    (``vocab``: the whole count; ``vocab_blocks``), the logsumexp and the
+    gold logit are sums over the model axis (the reference's one-hot
+    branch) of this process's real columns: the padding reaches neither
+    the max, nor the sum, nor the gold pick. Under a mesh with the batch
+    sharded, this process's rows: the sum of their terms and the count
+    are summed over the batch axes, so every process holds the mean over
+    the global batch, and its gradient is this process's share of the
+    global one (``compat.reduce_from``: summing the processes' gradients
+    gives the whole)."""
     logits = logits.float()
     labels = labels.long()
-    n, lo = _vocab_block(vocab)
+    n, _, lo, hi = vocab_blocks(vocab)
     if n == 1:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     else:
         axis = _model_axis()
-        top = compat.pmax(logits.detach().amax(dim=-1), axis)
+        real = logits[..., :hi - lo]
+        top = (real.detach().amax(dim=-1) if hi > lo else
+               logits.new_full(logits.shape[:-1], float("-inf")))
+        top = compat.pmax(top, axis)
         logz = top + torch.log(compat.reduce_from(
-            torch.exp(logits - top[..., None]).sum(dim=-1), axis))
+            torch.exp(real - top[..., None]).sum(dim=-1), axis))
         ids = labels - lo
-        mine = (ids >= 0) & (ids < logits.shape[-1])
+        mine = (ids >= 0) & (ids < hi - lo)
         picked = torch.gather(logits, -1, torch.where(
             mine, ids, torch.zeros_like(ids))[..., None])[..., 0]
         gold = compat.reduce_from(picked * mine.float(), axis)

@@ -133,7 +133,9 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor
     s = cfg.ssm
     seq = x.shape[1]
     xc, z = _in_proj(p, cfg, x)
-    conv_tail = xc[:, -(s.d_conv - 1):]     # pre-activation conv state
+    # pre-activation conv state: a copy, so that the cache does not keep
+    # the whole (B, S, 2 Di) projection alive
+    conv_tail = xc[:, -(s.d_conv - 1):].clone()
     if seq < s.d_conv - 1:
         conv_tail = F.pad(conv_tail, (0, 0, s.d_conv - 1 - seq, 0))
     xc = F.silu(_causal_conv(xc, p["conv_w"], p["conv_b"]))

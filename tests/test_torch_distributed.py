@@ -41,6 +41,16 @@ Phases and limits:
   1e-5 of JAX's, ``train_loss`` gradients within 1e-4 of each leaf's
   largest, prefill and two decode steps within 1e-5 of JAX's; each
   process holds a quarter of every projection's columns or rows.
+* (2, 4), a vocab of 510 that does not tile the 4-way model axis:
+  qwen2 smoke (tied head) and falcon-mamba smoke (untied), each with
+  ``vocab_size`` 510 in both packages, the JAX values under the mesh:
+  ``forward`` logits within 1e-5 of JAX's, ``train_loss`` within 1e-5 and
+  every gradient leaf (the replicated embedding and head included)
+  within 1e-4 of its largest JAX entry, and the serve steps on DTensor
+  params give JAX's greedy tokens past the guard. Each process's logits
+  block is 128 wide (ceil(510 / 4), the last two columns of the last
+  block padding), the per-device shape of the reference's constrained
+  logits in the HLO XLA compiles for the mesh.
 * (2, 2, 2) ('pod', 'data', 'model'): olmo smoke, f32 params, three
   ``compress_pod_grads`` + ZeRO-1 train steps placed as the launcher
   places them: the first loss within 1e-4 of JAX's, the later losses and
@@ -72,6 +82,8 @@ CACHE_LEN, PROMPT = 20, 12
 TP_ARCHS = (("tpo", "olmo-1b", 5), ("tpm", "falcon-mamba-7b", 6),
             ("tps", "seamless-m4t-large-v2", 7))
 S_SRC = 8
+UV_ARCHS = (("uvq", "qwen2-0.5b", 8), ("uvm", "falcon-mamba-7b", 9))
+UV_VOCAB = 510
 SP_HEADS, SP_SEQ = 6, 22
 TRAIN_STEPS = 3
 
@@ -147,6 +159,11 @@ def _tp_batch(cfg):
 def _sp_config(get):
     import dataclasses
     return dataclasses.replace(get("qwen2-0.5b"), num_heads=SP_HEADS)
+
+
+def _uv_config(get, arch):
+    import dataclasses
+    return dataclasses.replace(get(arch), vocab_size=UV_VOCAB)
 
 
 TRAIN_OPT = dict(learning_rate=1e-3, warmup_steps=0, decay_steps=100)
@@ -257,6 +274,44 @@ def _jax_main(out_path):
                                jnp.asarray(PROMPT + t, jnp.int32))
             out[f"{tag}_dec_{t}"] = np.asarray(logits)
 
+    # a vocab that does not tile the model axis, on (2, 4)
+    ctx = context_for_mesh(mesh_of(DEC_MESH))
+    for tag, arch, key in UV_ARCHS:
+        cfg = _uv_config(get_smoke_config, arch)
+        params = JM.init_params(cfg, jax.random.PRNGKey(key),
+                                dtype=jnp.float32)
+        put_params(tag, params)
+        batch, steps = _tp_batch(cfg)
+        batch = {k: jnp.asarray(v) for k, v in batch.items()}
+        with use_context(ctx):
+            out[f"{tag}_logits"] = np.asarray(jax.jit(
+                lambda p, b: JM.forward(p, cfg, b)[0])(params, batch))
+            val, grads = jax.jit(jax.value_and_grad(
+                lambda p, b: JM.train_loss(p, cfg, b)[0]))(params, batch)
+            out[f"{tag}_loss"] = np.asarray(val)
+            put_tree(f"{tag}_grad", grads)
+            logits, cache = jax.jit(JM.prefill, static_argnums=(1, 3))(
+                params, cfg, {"tokens": batch["tokens"]}, CACHE_LEN)
+            out[f"{tag}_dec_p"] = np.asarray(logits)
+            fn = jax.jit(lambda p, tok, c, i: JM.decode_step(p, cfg, tok, c,
+                                                             i))
+            for t in range(2):
+                logits, cache = fn(params, jnp.asarray(steps[t]), cache,
+                                   jnp.asarray(PROMPT + t, jnp.int32))
+                out[f"{tag}_dec_{t}"] = np.asarray(logits)
+    # the per-device shape of the reference's constrained logits: the
+    # head alone at D 96 (no other f32[2, PROMPT, *] product of that width)
+    import re
+    from repro.models.common import lm_logits
+    x = jnp.ones((4, PROMPT, 96), jnp.float32)
+    w = jnp.ones((UV_VOCAB, 96), jnp.float32)
+    with use_context(ctx):
+        hlo = jax.jit(lambda x, w: sh.constrain(
+            lm_logits({"embedding": w}, x, True), "batch", None, "vocab")
+        ).lower(x, w).compile().as_text()
+    out["uv_widths"] = np.array(sorted(
+        {int(m) for m in re.findall(rf"f32\[2,{PROMPT},(\d+)\]", hlo)}))
+
     # compressed pod exchange + ZeRO-1 on (2, 2, 2), as the launcher places
     cfg = get_smoke_config("olmo-1b")
     params = JM.init_params(cfg, jax.random.PRNGKey(4), dtype=jnp.float32)
@@ -299,7 +354,7 @@ def _rank_main(phase, rank, store, ref_path, out_dir):
         world_size=WORLD)
     try:
         {"ep": _rank_ep, "dec": _rank_dec, "tp": _rank_tp,
-         "pod": _rank_pod}[phase](
+         "uv": _rank_uv, "pod": _rank_pod}[phase](
             rank, np.load(ref_path), out_dir)
     finally:
         dist.barrier()
@@ -477,6 +532,51 @@ def _rank_tp(rank, ref, out_dir):
         np.savez(os.path.join(out_dir, "tp.npz"), **res)
 
 
+def _rank_uv(rank, ref, out_dir):
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.context import use_context
+    from repro_torch.launch import steps as serve
+    from repro_torch.launch.mesh import context_for_mesh, make_mesh
+    from repro_torch.models import model as TM
+    ctx = context_for_mesh(make_mesh(*DEC_MESH, device_type="cpu"))
+    widths, head = [], TM.lm_logits
+
+    def recording(*a, **kw):
+        out = head(*a, **kw)
+        widths.append(out.shape[-1])
+        return out
+    TM.lm_logits = recording
+    res = {}
+    for tag, arch, _ in UV_ARCHS:
+        cfg = _uv_config(get_smoke_config, arch)
+        params = _port_params(ref, tag, cfg)
+        batch, steps = _tp_batch(cfg)
+        dparams = sh.param_shardings(params, ctx, mode="serve")
+        rows = {k: torch.from_numpy(sh.local_rows(v, ctx))
+                for k, v in batch.items() if k != "labels"}
+        with use_context(ctx), torch.no_grad():
+            logits, _ = TM.forward(dparams, cfg, rows)
+            res[f"{tag}_logits"] = _gathered_rows(logits, ctx).numpy()
+        with use_context(ctx):
+            pred, cert, cache = serve.make_serve_prefill(cfg, CACHE_LEN)(
+                dparams, {"tokens": batch["tokens"]})
+            res[f"{tag}_pred_p"], res[f"{tag}_cert_p"] = pred, cert
+            for t in range(2):
+                pred, cert, cache = serve.make_serve_decode(cfg)(
+                    dparams, cache, torch.from_numpy(steps[t]), PROMPT + t)
+                res[f"{tag}_pred_{t}"], res[f"{tag}_cert_{t}"] = pred, cert
+        res[f"{tag}_loss"], grads = _whole_grads(params, cfg, batch, ctx)
+        res.update({f"{tag}_grad_{i}": g.numpy()
+                    for i, g in enumerate(grads)})
+    with open(os.path.join(out_dir, f"uv_widths_{rank}.json"), "w") as f:
+        json.dump(sorted(set(widths)), f)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "uv.npz"),
+                 **{k: np.asarray(v) for k, v in res.items()})
+
+
 def _rank_pod(rank, ref, out_dir):
     import torch
     from repro_torch import tree as tree_lib
@@ -603,6 +703,44 @@ def test_flash_decode_and_seq_parallel_against_jax(jax_ref, tmp_path):
     np.testing.assert_allclose(ref["sp_logits"], ref["sp_logits_local"],
                                atol=1e-5, rtol=0)
     _assert_grads(_leaves(got, "sp_grad_"), _leaves(ref, "sp_grad_"), 1e-4)
+
+
+@pytest.fixture(scope="module")
+def uneven_vocab(jax_ref, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("uv")
+    got = _spawn("uv", jax_ref, tmp)
+    widths = []
+    for r in range(WORLD):
+        with open(tmp / f"uv_widths_{r}.json") as f:
+            widths.append(json.load(f))
+    return got, widths
+
+
+@pytest.mark.parametrize("tag", [t for t, _, _ in UV_ARCHS],
+                         ids=[a for _, a, _ in UV_ARCHS])
+def test_uneven_vocab_logits_in_padded_blocks_against_jax(jax_ref,
+                                                          uneven_vocab, tag):
+    ref = np.load(jax_ref)
+    got, widths = uneven_vocab
+    # every process's block is ceil(510 / 4) wide, as the reference's
+    assert widths == [[128]] * WORLD
+    assert 128 in ref["uv_widths"] and UV_VOCAB not in ref["uv_widths"]
+    np.testing.assert_allclose(got[f"{tag}_logits"], ref[f"{tag}_logits"],
+                               atol=1e-5, rtol=0)
+    assert got[f"{tag}_logits"].shape[-1] == UV_VOCAB
+    assert abs(float(got[f"{tag}_loss"]) - float(ref[f"{tag}_loss"])) <= 1e-5
+    _assert_grads(_leaves(got, f"{tag}_grad_"),
+                  _leaves(ref, f"{tag}_grad_"), 1e-4)
+    for k in ("p", "0", "1"):
+        # JAX's greedy token wherever its top-2 gap clears the guard
+        jl = ref[f"{tag}_dec_{k}"]
+        top = np.sort(jl, axis=-1)
+        clear = top[:, -1] - top[:, -2] > ROUTER_NEAR
+        assert clear.any()
+        np.testing.assert_array_equal(got[f"{tag}_pred_{k}"][clear],
+                                      jl.argmax(-1)[clear])
+        np.testing.assert_allclose(got[f"{tag}_cert_{k}"],
+                                   top[:, -1] - top[:, -2], atol=1e-4)
 
 
 def test_pod_int8_exchange_and_zero1_train_against_jax(jax_ref, tmp_path):

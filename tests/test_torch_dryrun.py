@@ -50,6 +50,12 @@ ones, the only tensors a charged call takes.
   helper on real tensors (which raises on fakes), every rank of a
   (2, 2, 4) mesh.
 * ``RooflineReport`` math on the H100's constants.
+* A vocab that does not tile the model axis (smoke qwen2, tied, and
+  falcon-mamba, untied, at V 510 on (2, 4), a train step): the traced
+  logits are ceil(510 / 4) = 128 columns wide, and the peak, the FLOPs
+  and the bytes fall below the same cell's with the logits whole on
+  every process (``models/common.py`` ``vocab_blocks`` forced to one
+  block, the split before padded blocks).
 * Production-mesh cells through ``run_cell``: olmo-1b decode_32k on both
   meshes, falcon-mamba-7b long_500k, llama4-maverick train_4k single,
   olmo-1b train_4k on both (the multi-pod moments ZeRO-1 over 'pod'), and
@@ -565,6 +571,53 @@ def test_h100_constants_beside_the_v5e_ones():
     assert hw.CHIPS_PER_POD == jhw.CHIPS_PER_POD == 256
     assert hw.DCN_BW == 50e9 and hw.NVLINK_DOMAIN == 8
     assert hw.SMEM_BYTES_PER_SM == 228 * 1024 and hw.L2_BYTES == 50 * 2 ** 20
+
+
+# ---------------------------------------------------------------------------
+# a vocab that does not tile the model axis
+# ---------------------------------------------------------------------------
+
+UNEVEN_ARCHS = ("qwen2-0.5b", "falcon-mamba-7b")
+
+_UNEVEN = """
+import dataclasses, json
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch.dryrun import trace_cell
+from repro_torch.models import common, model
+widths, head, padded = [], model.lm_logits, common.vocab_blocks
+
+def recording(*a, **kw):
+    out = head(*a, **kw)
+    widths.append(out.shape[-1])
+    return out
+model.lm_logits = recording
+out = {}
+for arch in ARCHS:
+    cfg = dataclasses.replace(get_smoke_config(arch), vocab_size=510)
+    for tag, blocks in (("padded", padded),
+                        ("whole", lambda vocab: (1, vocab, 0, vocab))):
+        common.vocab_blocks = blocks
+        widths.clear()
+        cost, _, _ = trace_cell(cfg, ShapeCell("train", "train", 64, 8),
+                                (2, 4), "cpu")
+        out[f"{arch}_{tag}"] = [cost.peak_memory_bytes, cost.flops,
+                                cost.bytes, sorted(set(widths))]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def uneven():
+    return _run(f"ARCHS = {UNEVEN_ARCHS!r}\n" + _UNEVEN)
+
+
+@pytest.mark.parametrize("arch", UNEVEN_ARCHS)
+def test_uneven_vocab_traces_padded_logit_blocks(uneven, arch):
+    peak, flops, nbytes, widths = uneven[f"{arch}_padded"]
+    w_peak, w_flops, w_bytes, w_widths = uneven[f"{arch}_whole"]
+    assert widths == [128] and w_widths == [510]
+    assert peak < w_peak and flops < w_flops and nbytes < w_bytes
 
 
 # ---------------------------------------------------------------------------
