@@ -314,13 +314,17 @@ launch counts include graph replays.
              backward with ``q_offset`` (qwen2's training shape in 4 query
              chunks: outputs and dq bit-equal to the unchunked slices, an
              offset one late rejected).
-29. dryrun — the dry-run (``repro_torch.launch.dryrun.run_cell``): six
+29. dryrun — the dry-run (``repro_torch.launch.dryrun.run_cell``): seven
              production-mesh cells (olmo-1b decode_32k on (16, 16) and
              (2, 16, 16), falcon-mamba-7b long_500k, llama4-maverick
              train_4k, internvl2-1b train_4k (a vocab of 151,655 that
              does not tile the 16-wide model axis: its logits in padded
-             blocks) and falcon-mamba-7b prefill_32k (each layer's conv
-             tail copied out of its projection) on (16, 16); each must
+             blocks), falcon-mamba-7b prefill_32k (each layer's conv
+             tail copied out of its projection) and h2o-danube-1.8b
+             train_4k (32 query heads tile the model axis, 8 kv heads do
+             not: the query-heads layout, each process 2 query heads
+             over the kv head they read, forward, remat and backward) on
+             (16, 16); each must
              peak under 80 GB a card) traced on fake tensors over a fake
              256- or 512-rank process group, once with ``--device cuda``
              (fake CUDA tensors: every kernel wrapper charged as its
@@ -4602,7 +4606,8 @@ DRYRUN_CELLS = (("olmo-1b", "decode_32k", "single"),
                 ("falcon-mamba-7b", "long_500k", "single"),
                 ("llama4-maverick-400b-a17b", "train_4k", "single"),
                 ("internvl2-1b", "train_4k", "single"),
-                ("falcon-mamba-7b", "prefill_32k", "single"))
+                ("falcon-mamba-7b", "prefill_32k", "single"),
+                ("h2o-danube-1.8b", "train_4k", "single"))
 DRYRUN_PEAK_LIMIT = 80e9      # bytes a card: the H100's 80 GB
 # the row's fields that must not depend on the device the fakes stand for
 DRYRUN_FIELDS = ("status", "chips", "hlo_flops", "hlo_bytes",

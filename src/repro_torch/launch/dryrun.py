@@ -30,11 +30,11 @@ the step is traced, and the peak counts each argument's local block
 
 The traced process is the mesh's last rank (the last coordinate on every
 axis). Ranks differ in one place: under sequence-parallel causal
-attention (the heads do not tile the model axis) each model coordinate
-takes one chunk of the queries over the keys up to the chunk's end, and
-the last chunk sees every key, so the last rank is the busiest device
-and its row bounds the step. The reference's SPMD program is the same on
-every device.
+attention (the query heads do not tile the model axis) each model
+coordinate takes one chunk of the queries over the keys up to the
+chunk's end, and the last chunk sees every key, so the last rank is the
+busiest device and its row bounds the step. The reference's SPMD program
+is the same on every device.
 
 The fake process group is global to a process, and a process that has
 started another group cannot trace: run ``main`` in a process of its own.

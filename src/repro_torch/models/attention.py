@@ -14,25 +14,42 @@ wrappers run their plain versions.
 Under a mesh (``distributed.context``), each process holds its rows of the
 batch and its blocks of the projections (``models/common.py``): ``wq``,
 ``wk``, ``wv`` and their biases split by columns, ``wo`` by rows, where
-the widths divide the model axis. Three layouts follow:
+the widths divide the model axis. Over a model axis of n > 1 processes,
+the reference's rule (``repro/models/attention.py:130-141``) picks the
+layout by the query heads H alone; the kv heads KV only decide how a
+process reads its keys:
 
-* heads (both head counts tile the model axis): each process projects,
-  attends and caches its own heads (the cache kv-head sharded, the
-  reference's ``_CACHE_RULES``), and ``wo``'s partial sums are added over
-  the axis;
-* sequence-parallel (``_seq_parallel_attention``: the heads do not tile
-  the axis; the reference's rule is on the query heads, the port's on
-  both counts). The projections' column blocks are gathered whole, and
-  each process takes one chunk of the queries, ``ceil(S / n)`` long (the
-  sequence is zero-padded to n chunks; pad queries are dropped, and in
-  the causal forms no real query sees a pad key), and runs the flash
-  kernel with ``q_offset`` at its chunk's start, over the keys up to the
-  chunk's end (causal; every key in the full forms); the chunks' outputs
-  are gathered, and each process multiplies its block of them by its
-  rows of ``wo``. ``compat.copy_to`` (backward: a sum over the model
-  axis) and ``compat.gather_from`` (backward: this process's block) make
-  the gradients whole again. A decode step (one query) attends over all
-  heads on every process, the cache whole;
+* heads (H and KV both tile the axis): each process projects, attends
+  and caches its own heads (the cache kv-head sharded, the reference's
+  ``_CACHE_RULES``), and ``wo``'s partial sums are added over the axis;
+* query heads (``_query_heads_local``: H tiles the axis, KV does not;
+  the reference leaves GSPMD to shard the query heads, its k and v
+  repeated to H heads, the cache replicated). Each process keeps its
+  columns of ``wq``, so its q is its H / n query heads, and gathers k and
+  v whole. Query head h reads kv head h // (H / KV) (``_repeat_kv``'s
+  order), so a process reads the kv heads ``kv_heads_read`` names: a
+  slice [lo, hi) where its heads fall into whole groups (the kernels'
+  own GQA), else the slice expanded to one kv head per query head.
+  ``compat.copy_to`` sums the gradient of k and v over the axis before
+  each process takes its slice. The flash kernel runs over the whole
+  sequence; a decode step writes the new k and v into every process's
+  whole cache (the same values on each, as the replicated reference's)
+  and the decode kernel reads the slice as a strided view. The output
+  is this process's block of ``wo``'s rows, added over the axis;
+* sequence-parallel (``_seq_parallel_attention``: H does not tile the
+  axis; the reference's rule: sharding the heads would split the
+  contracting head dim instead). The projections' column blocks are
+  gathered whole, and each process takes one chunk of the queries,
+  ``ceil(S / n)`` long (the sequence is zero-padded to n chunks; pad
+  queries are dropped, and in the causal forms no real query sees a pad
+  key), and runs the flash kernel with ``q_offset`` at its chunk's
+  start, over the keys up to the chunk's end (causal; every key in the
+  full forms); the chunks' outputs are gathered, and each process
+  multiplies its block of them by its rows of ``wo``. ``compat.copy_to``
+  (backward: a sum over the model axis) and ``compat.gather_from``
+  (backward: this process's block) make the gradients whole again. A
+  decode step (one query) attends over all heads on every process, the
+  cache whole;
 * sharded flash-decoding (``decode_attention_sharded``): the cache is
   sequence-sharded over the model axis, each process writes and attends
   its own chunk over all heads (``_flash_decode_shard``, the decode
@@ -51,7 +68,7 @@ softmax does not depend on the order of the slots.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -65,9 +82,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (Params, apply_rope, tp_in, tp_out,
                                        tp_own, tp_whole)
 
-__all__ = ["kv_cache_len", "attention_forward", "prefill_attention",
-           "decode_attention", "decode_attention_sharded", "flash_decode_on",
-           "make_cross_kv", "cross_attention", "cross_attention_cached"]
+__all__ = ["kv_cache_len", "kv_heads_read", "attention_forward",
+           "prefill_attention", "decode_attention",
+           "decode_attention_sharded", "flash_decode_on", "make_cross_kv",
+           "cross_attention", "cross_attention_cached"]
 
 
 def _blocks(cfg: ModelConfig) -> Tuple[int, int]:
@@ -77,21 +95,75 @@ def _blocks(cfg: ModelConfig) -> Tuple[int, int]:
             model_blocks(cfg.num_kv_heads * hd))
 
 
-def _heads_local(cfg: ModelConfig) -> bool:
-    """Each process attends with its own heads: a mesh whose model axis
-    (more than one process) both head counts tile."""
+def _model_n() -> int:
+    """Processes along the ambient mesh's model axis (1 without one)."""
     ctx = get_context()
     if ctx is None or ctx.mesh is None:
-        return False
-    n = compat.axis_size(ctx.model_axis)
+        return 1
+    return compat.axis_size(ctx.model_axis)
+
+
+def _heads_local(cfg: ModelConfig) -> bool:
+    """The heads layout: each process attends with its own query and kv
+    heads, on a model axis (more than one process) both counts tile."""
+    n = _model_n()
     return n > 1 and cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+
+
+def _query_heads_local(cfg: ModelConfig) -> bool:
+    """The query-heads layout: each process attends with its own query
+    heads over the kv heads they read, on a model axis (more than one
+    process) that the query heads tile and the kv heads do not."""
+    n = _model_n()
+    return n > 1 and cfg.num_heads % n == 0 and cfg.num_kv_heads % n != 0
+
+
+def kv_heads_read(num_heads: int, num_kv_heads: int, n: int, r: int
+                  ) -> Tuple[int, int, int, Optional[Tuple[int, ...]]]:
+    """The kv heads that process ``r`` of a model axis of ``n`` reads in
+    the query-heads layout. Its query heads are [r H / n, (r + 1) H / n),
+    and head h reads kv head h // G, G = H / KV. Returns (lo, hi, group,
+    heads): the kv heads [lo, hi); where the local heads fall into whole
+    groups, ``heads`` is None and local head j reads kv head lo + j //
+    group (the kernels' GQA over the slice); else ``heads`` names each
+    local head's kv head and ``group`` is 1."""
+    m, g = num_heads // n, num_heads // num_kv_heads
+    kv = [(r * m + j) // g for j in range(m)]
+    lo, hi = kv[0], kv[-1] + 1
+    group = m // (hi - lo)
+    if all(k == lo + j // group for j, k in enumerate(kv)):
+        return lo, hi, group, None
+    return lo, hi, 1, tuple(kv)
+
+
+def _kv_local(cfg: ModelConfig, *ts: torch.Tensor) -> Tuple[torch.Tensor,
+                                                           ...]:
+    """This process's kv heads (``kv_heads_read``) of each whole (B, *,
+    KV, hd) tensor: a view of the slice, or where the local heads do not
+    fall into whole groups, one kv head per local head (a copy)."""
+    axis = get_context().model_axis
+    lo, hi, _, heads = kv_heads_read(cfg.num_heads, cfg.num_kv_heads,
+                                     compat.axis_size(axis),
+                                     compat.axis_index(axis))
+    if heads is None:
+        return tuple(t[:, :, lo:hi] for t in ts)
+    return tuple(torch.cat([t[:, :, k:k + 1] for k in heads], dim=2)
+                 for t in ts)
+
+
+def _norm_scale(scale: torch.Tensor, local: bool) -> torch.Tensor:
+    """A head norm's (replicated) scale; where the norm sees this
+    process's heads only, its gradient is summed over the model axis."""
+    return compat.copy_to(scale, get_context().model_axis) if local \
+        else scale
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  whole: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B, S, H, hd), k and v (B, S, KV, hd); this process's heads in
-    the heads layout unless ``whole``, else every head."""
+    """q (B, S, H, hd), k and v (B, S, KV, hd): unless ``whole``, q holds
+    this process's query heads in the heads and query-heads layouts, and
+    k and v its kv heads in the heads layout; else every head."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     nq, nk = _blocks(cfg)
@@ -104,16 +176,24 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    if whole or not _heads_local(cfg):
+    q_whole = whole or _seq_parallel_attention(cfg)
+    kv_whole = whole or not _heads_local(cfg)
+    if q_whole:
         q = tp_whole(q, nq, split_after=False)
+    if kv_whole:
         k = tp_whole(k, nk, split_after=False)
         v = tp_whole(v, nk, split_after=False)
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = _head_rmsnorm(q, p["q_norm_scale"], cfg.norm_eps)
-        k = _head_rmsnorm(k, p["k_norm_scale"], cfg.norm_eps)
+        n = _model_n()
+        q = _head_rmsnorm(q, _norm_scale(p["q_norm_scale"],
+                                         n > 1 and not q_whole),
+                          cfg.norm_eps)
+        k = _head_rmsnorm(k, _norm_scale(p["k_norm_scale"],
+                                         n > 1 and not kv_whole),
+                          cfg.norm_eps)
     return q, k, v
 
 
@@ -137,21 +217,23 @@ def _head_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 def _seq_parallel_attention(cfg: ModelConfig) -> bool:
     """Sequence-parallel full-sequence attention: a model axis of more
-    than one process that the head counts do not tile (the reference's
+    than one process that the query heads do not tile (the reference's
     rule: sharding the heads would split the contracting head dim
     instead)."""
-    ctx = get_context()
-    if ctx is None or ctx.mesh is None:
-        return False
-    return (compat.axis_size(ctx.model_axis) > 1
-            and not _heads_local(cfg))
+    n = _model_n()
+    return n > 1 and cfg.num_heads % n != 0
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
-    """The flash kernel over q, k, v (B, S, *, hd), or under sequence
-    parallelism one query chunk per process, gathered (module
+    """The flash kernel over q, k, v (B, S, *, hd): in the query-heads
+    layout over the kv heads this process's query heads read, under
+    sequence parallelism one query chunk per process, gathered (module
     docstring)."""
+    if _query_heads_local(cfg):
+        axis = get_context().model_axis
+        k, v = _kv_local(cfg, *(compat.copy_to(t, axis) for t in (k, v)))
+        return flash_attention(q, k, v, causal=causal, window=window)
     if not _seq_parallel_attention(cfg):
         return flash_attention(q, k, v, causal=causal, window=window)
     ctx = get_context()
@@ -275,7 +357,10 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     valid_len = torch.clamp(ci + 1, max=c_len).to(torch.int32)
-    out = decode_kernel(q[:, 0], cache["k"], cache["v"], valid_len)
+    kc, vc = cache["k"], cache["v"]
+    if _query_heads_local(cfg):
+        kc, vc = _kv_local(cfg, kc, vc)
+    out = decode_kernel(q[:, 0], kc, vc, valid_len)
     return _out_proj(p, cfg, out.reshape(b, 1, -1)), cache
 
 
@@ -393,10 +478,12 @@ def cross_attention_cached(p: Params, cfg: ModelConfig, x: torch.Tensor,
     b, sq, _ = x.shape
     nq, _ = _blocks(cfg)
     q = tp_in(x, nq) @ p["wq"]
-    if not _heads_local(cfg):
+    if _seq_parallel_attention(cfg):
         q = tp_whole(q, nq, split_after=False)
     q = q.reshape(b, sq, -1, cfg.head_dim)
     if sq == 1:
+        if _query_heads_local(cfg):
+            ck, cv = _kv_local(cfg, ck, cv)
         out = decode_kernel(q[:, 0], ck, cv, ck.shape[1])
     else:
         out = _attend(cfg, q, ck, cv, causal=False, window=0)

@@ -53,8 +53,10 @@ and ``decode_step`` return logits gathered whole over the vocab;
 ``train_loss`` keeps them split. ``constrain`` stands at the reference's
 sites. Two more paths split work over the mesh: ``decode_step`` with
 ``flash_decode`` runs the sharded flash-decode (its cache is this
-process's sequence chunk), and attention whose heads do not tile the
-model axis runs sequence-parallel (``models/attention.py``).
+process's sequence chunk), and attention whose query heads do not tile
+the model axis runs sequence-parallel (``models/attention.py``; where
+they tile it and the kv heads do not, each process attends with its
+query heads over the kv heads they read).
 
 Activation recomputation (``remat``): where JAX wraps the scanned block in
 ``jax.checkpoint``, the port wraps each block of ``_run_blocks`` in

@@ -361,8 +361,8 @@ def test_h100_defaults_place_qwen3_32b_on_one_card():
 
 
 def test_serve_cli_workload_qwen_on_cpu():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
          "qwen", "--device", "cpu", "--trace-seconds", "6", "--n-ranges",

@@ -36,10 +36,14 @@ Phases and limits:
   JAX's, and its gradients within 1e-4 of each leaf's largest.
 * (2, 4), the tensor-parallel layers on DTensor params: olmo smoke
   (heads layout: one head and one kv head per model process, the cache
-  kv-head sharded), falcon-mamba smoke (the mixer's channels split) and
-  seamless smoke (encoder, cross attention): ``forward`` logits within
-  1e-5 of JAX's, ``train_loss`` gradients within 1e-4 of each leaf's
-  largest, prefill and two decode steps within 1e-5 of JAX's; each
+  kv-head sharded), falcon-mamba smoke (the mixer's channels split),
+  seamless smoke (encoder, cross attention), and in the query-heads
+  layout (4 query heads over 4, 2 kv heads: one query head per model
+  process over the kv head it reads, the cache whole) h2o-danube smoke
+  (window 64, so its decode writes a ring) and qwen3 smoke (qk-norm, whose
+  scales' gradients are summed over the model axis): ``forward`` logits
+  within 1e-5 of JAX's, ``train_loss`` gradients within 1e-4 of each
+  leaf's largest, prefill and two decode steps within 1e-5 of JAX's; each
   process holds a quarter of every projection's columns or rows.
 * (2, 4), a vocab of 510 that does not tile the 4-way model axis:
   qwen2 smoke (tied head) and falcon-mamba smoke (untied), each with
@@ -80,7 +84,8 @@ DEC_MESH = ((2, 4), ("data", "model"))
 POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
 CACHE_LEN, PROMPT = 20, 12
 TP_ARCHS = (("tpo", "olmo-1b", 5), ("tpm", "falcon-mamba-7b", 6),
-            ("tps", "seamless-m4t-large-v2", 7))
+            ("tps", "seamless-m4t-large-v2", 7),
+            ("tpd", "h2o-danube-1.8b", 10), ("tpq", "qwen3-32b", 11))
 S_SRC = 8
 UV_ARCHS = (("uvq", "qwen2-0.5b", 8), ("uvm", "falcon-mamba-7b", 9))
 UV_VOCAB = 510
@@ -510,10 +515,14 @@ def _rank_tp(rank, ref, out_dir):
         rows = {k: torch.from_numpy(sh.local_rows(v, ctx))
                 for k, v in batch.items() if k != "labels"}
         with use_context(ctx), torch.no_grad():
-            local = tree_lib.leaves(sh.local_params(dparams))
-            res[f"{tag}_share"] = (sum(t.numel() for t in local)
+            mine = sh.local_params(dparams)
+            res[f"{tag}_share"] = (sum(t.numel() for t in
+                                       tree_lib.leaves(mine))
                                    / sum(t.numel() for t in
                                          tree_lib.leaves(params)))
+            if "attn" in mine["blocks"][0]:
+                res[f"{tag}_wq"] = tuple(
+                    mine["blocks"][0]["attn"]["wq"].shape)
             logits, _ = TM.forward(dparams, cfg, rows)
             res[f"{tag}_logits"] = _gathered_rows(logits, ctx).numpy()
             logits, cache = TM.prefill(dparams, cfg, rows, CACHE_LEN)
@@ -621,7 +630,7 @@ def _rank_pod(rank, ref, out_dir):
 def jax_ref(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("jax") / "ref.npz")
     env = _env(XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     _run_all([[sys.executable, __file__, "jax", path]], env)
     return path
 
@@ -678,6 +687,12 @@ def test_tensor_parallel_layers_against_jax(jax_ref, tmp_path):
     # falcon-mamba's conv state (reps, B, K - 1, Di 256 over 4)
     assert tuple(got["tpo_cache"])[3] == 1
     assert tuple(got["tpm_cache"])[-1] == 64
+    # the query-heads layout (4 query heads, 2 kv heads over 4): one query
+    # head's columns of wq (hd 32), a cache of both kv heads; danube's is
+    # its ring of 20 slots (window 64 over CACHE_LEN)
+    for tag in ("tpd", "tpq"):
+        assert tuple(got[f"{tag}_wq"])[-1] == 32, tag
+        assert tuple(got[f"{tag}_cache"])[1:4] == (2, CACHE_LEN, 2), tag
 
 
 def test_flash_decode_and_seq_parallel_against_jax(jax_ref, tmp_path):
@@ -803,8 +818,8 @@ def test_train_launcher_mesh_resume_and_jax_checkpoint(tmp_path):
         "print(meta['step'], len(jax.tree.leaves((p, o))), "
         "int(o['step']))\n")
     res = subprocess.run([sys.executable, "-c", probe], env=_env(
-        JAX_PLATFORMS="cpu"), cwd=ROOT, capture_output=True, text=True,
-        timeout=TIMEOUT)
+        JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"), cwd=ROOT,
+        capture_output=True, text=True, timeout=TIMEOUT)
     assert res.returncode == 0, res.stderr[-3000:]
     step, n, opt_step = res.stdout.split()
     assert (int(step), int(n), int(opt_step)) == (4, len(a.files), 4)

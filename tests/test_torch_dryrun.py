@@ -12,9 +12,9 @@ ones, the only tensors a charged call takes.
   ``jax.sharding.Mesh`` of 8 host devices (as ``tests/
   test_torch_distributed.py`` builds its meshes; its production mesh and
   config lookups pointed at that mesh and the smoke configs), against the
-  port's ``trace_cell`` on a fake mesh of the same shape, B 8 x S 64 (S 62
-  on (2, 4)). The port's FLOPs equal JAX's minus the differences named in
-  ``_named``, within 1 %:
+  port's ``trace_cell`` on a fake mesh of the same shape, B 8 x S 64 (also
+  S 62 on (2, 4)). The port's FLOPs equal JAX's minus the differences
+  named in ``_named``, within 1 %:
 
   - ``embed``: under a mesh the reference embeds by a one-hot product
     (``repro/models/common.py:160-162``), 2 x tokens x vocab block x D;
@@ -26,15 +26,10 @@ ones, the only tensors a charged call takes.
     product with respect to its input is an outer product, which XLA
     writes as a broadcast multiply, not a ``dot``; the port's ``mm``
     counts 2 x tokens x D per MoE layer.
-  - ``gathered_heads``: where the kv heads do not tile the model axis the
-    reference shards the query heads (S x S scores over H / n heads); the
-    port attends sequence-parallel over every head, this process's chunk
-    of ceil(S / n) queries over the keys up to the chunk's end (padded).
-    The dry-run traces the last rank, whose chunk sees every key: where
-    n divides S its attention equals the reference's. Rank 0's chunk sees
-    the fewest keys: its gap on qwen2's (2, 4) prefill at S 64 is
-    14,680,064, the embedding's 8,388,608 and 6,291,456 of attention
-    (4 layers x 4 x (4 rows x 64^2 x 1 head - 4 x 16^2 x 4 heads) x 32).
+  Attention names no difference: where the query heads tile the model
+  axis, both packages attend with this process's query heads over the
+  whole sequence (the port over the kv heads they read), and the
+  cases here all have such heads.
 
 * ``TraceCost`` by hand: one matmul, a stacked weight read one layer at a
   time, an indexed read, an in-place cache-row write, the peak of live
@@ -89,8 +84,8 @@ TIMEOUT = 300
 
 def _run(code: str, env_extra=None) -> dict:
     """Run ``code`` in a fresh interpreter; its last stdout line is JSON."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     env.update(env_extra or {})
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=TIMEOUT)
@@ -112,6 +107,7 @@ CASES = [
     ("seamless_prefill", "seamless-m4t-large-v2", "prefill", 64, 8, (4, 2)),
     ("qwen2_prefill_2x4", "qwen2-0.5b", "prefill", 64, 8, (2, 4)),
     ("qwen2_prefill_2x4_s62", "qwen2-0.5b", "prefill", 62, 8, (2, 4)),
+    ("qwen2_train_2x4", "qwen2-0.5b", "train", 64, 8, (2, 4)),
 ]
 
 _JAX = """
@@ -154,7 +150,7 @@ def parity():
     cases = json.dumps(CASES)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu")
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     res = {}
     for tag, code in (("jax", _JAX), ("port", _PORT)):
         out = subprocess.run([sys.executable, "-c", code, cases], cwd=ROOT,
@@ -181,12 +177,6 @@ def _named(arch, kind, seq, batch, dims):
         out["loss"] = 2 * tokens * vocab
     if kind == "train" and cfg.moe is not None and cfg.moe.num_shared_experts:
         out["shared_gate"] = -2 * tokens * cfg.d_model * cfg.num_layers
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if kind == "prefill" and (h % n_model or kv % n_model):
-        chunk = -(-seq // n_model)   # the last chunk, over every key
-        jax_attn = 4 * rows * seq * seq * (h // n_model) * hd
-        port_attn = 4 * rows * chunk * n_model * chunk * h * hd
-        out["gathered_heads"] = cfg.num_layers * (jax_attn - port_attn)
     return out
 
 
@@ -207,8 +197,8 @@ def test_flops_equal_the_jax_hlo_count_less_the_named_differences(parity,
 
 def test_the_known_figures_are_reproduced(parity):
     """qwen2 smoke on (4, 2): prefill 92,405,760 (JAX) against 84,017,152
-    (the port), train 360,775,680 against 343,932,928; on (2, 4) the last
-    rank's gap is the embedding's alone (module docstring)."""
+    (the port), train 360,775,680 against 343,932,928; on (2, 4) the gap
+    is the embedding's alone (module docstring)."""
     assert parity["jax"]["qwen2_prefill"] == 92_405_760
     assert parity["port"]["qwen2_prefill"][0] == 84_017_152
     assert parity["jax"]["qwen2_train"] == 360_775_680
@@ -641,7 +631,8 @@ print(json.dumps(rows))
 
 @pytest.fixture(scope="module")
 def cells():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _CELLS, json.dumps(CELLS)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=TIMEOUT)
@@ -739,7 +730,8 @@ def test_every_skip_has_the_reference_reason():
 
 def test_cli_runs_cells_and_writes_rows(tmp_path):
     out = tmp_path / "rows.json"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen2-0.5b", "--shape", "decode_32k", "--mesh", "both",
@@ -754,7 +746,8 @@ def test_cli_runs_cells_and_writes_rows(tmp_path):
 
 def test_cli_serve_profiles(tmp_path):
     out = tmp_path / "profiles.json"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen2-0.5b", "--serve-profiles-out", str(out)], cwd=ROOT, env=env,

@@ -74,7 +74,7 @@ NEW_MODULES = ("repro_torch.core.admission", "repro_torch.core.scenarios",
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    env = dict(os.environ)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"), ROOT])
     probe = f"NEW_MODULES = {NEW_MODULES!r}\n" + _PROBE
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
@@ -128,7 +128,7 @@ def test_classifier_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_chip_smoke_refuses_without_cuda():
     """Without a card the script exits non-zero and prints no result."""
-    env = dict(os.environ)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -171,7 +171,7 @@ def test_train_launcher_raises_without_cuda(monkeypatch, tmp_path, capsys):
 
 
 def test_train_module_refuses_without_cuda_in_a_fresh_interpreter():
-    env = dict(os.environ)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["CUDA_VISIBLE_DEVICES"] = ""
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     out = subprocess.run(

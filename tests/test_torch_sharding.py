@@ -20,6 +20,10 @@ process group).
   included) against the unsplit decode; ``flash_attention_ref`` with
   ``q_offset`` on query chunks, and its gradient, equal to slices of the
   unchunked call.
+* The query-heads layout's kv heads (``kv_heads_read``, ``_kv_local``)
+  against the reference's ``_repeat_kv`` order, for the production
+  configs' head counts over 16 and the smoke ones over 4, and one whose
+  local heads do not fall into whole groups (12 / 3 over 4).
 """
 import dataclasses
 
@@ -397,3 +401,58 @@ def test_replace_keeps_the_port_config_in_step():
     t = dataclasses.replace(get_smoke_config("qwen2-0.5b"), num_heads=6)
     assert (j.num_heads, j.num_kv_heads, j.head_dim, j.d_model) == \
         (t.num_heads, t.num_kv_heads, t.head_dim, t.d_model)
+
+
+@pytest.mark.parametrize("h,kv,n", [(64, 8, 16), (32, 8, 16), (4, 2, 4),
+                                    (8, 2, 4), (12, 3, 4)])
+def test_kv_heads_read_follow_the_reference_repeat(h, kv, n, monkeypatch):
+    """In the query-heads layout each process's query heads read the kv
+    heads the reference's ``_repeat_kv`` gives them, and the plain flash
+    and decode over what ``_kv_local`` takes (a strided view of the
+    slice; a copy with one kv head per local head where they do not fall
+    into whole groups) equal the unsplit calls' heads."""
+    import types
+    from repro.models.attention import _repeat_kv
+    want = np.asarray(_repeat_kv(jnp.arange(kv).reshape(1, 1, kv, 1),
+                                 h)).reshape(h)
+    m = h // n
+    rng = np.random.default_rng(h * 100 + kv * 10 + n)
+    d, s = 8, 5
+    q = torch.from_numpy(rng.standard_normal((2, s, h, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, s, kv, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, s, kv, d))
+                         .astype(np.float32))
+    full = tref.flash_attention_ref(q, k, v, causal=True)
+    step = tref.decode_attention_ref(q[:, -1], k, v, s)
+    cfg = types.SimpleNamespace(num_heads=h, num_kv_heads=kv)
+    monkeypatch.setattr(TA, "get_context",
+                        lambda: types.SimpleNamespace(model_axis="model"))
+    monkeypatch.setattr(TA.compat, "axis_size", lambda axis, mesh=None: n)
+    whole_groups = 0
+    for r in range(n):
+        lo, hi, group, heads = TA.kv_heads_read(h, kv, n, r)
+        got = [lo + j // group if heads is None else heads[j]
+               for j in range(m)]
+        assert got == list(want[r * m:(r + 1) * m]), (r, lo, hi, group)
+        monkeypatch.setattr(TA.compat, "axis_index",
+                            lambda axis, mesh=None, r=r: r)
+        ks, vs = TA._kv_local(cfg, k, v)
+        if heads is None:
+            whole_groups += 1
+            assert (hi - lo) * group == m
+            assert ks.shape[2] == hi - lo and ks.data_ptr() == \
+                k[:, :, lo:].data_ptr()         # a view: the cache stays
+        else:
+            assert group == 1 and lo == heads[0] and hi == heads[-1] + 1
+            assert ks.shape[2] == m
+        mine = slice(r * m, (r + 1) * m)
+        torch.testing.assert_close(
+            tref.flash_attention_ref(q[:, :, mine].contiguous(), ks, vs,
+                                     causal=True), full[:, :, mine],
+            atol=1e-6, rtol=0)
+        torch.testing.assert_close(
+            tref.decode_attention_ref(q[:, -1, mine].contiguous(), ks, vs,
+                                      s), step[:, mine], atol=1e-6, rtol=0)
+    # every config of the repo falls into whole groups; 12 / 3 on 4 not
+    assert whole_groups == (n if (h, kv) != (12, 3) else 2)
