@@ -57,7 +57,9 @@ launch counts include graph replays.
              bf16 o, as the kernel reads it),
              rejecting the plain version with the full form's pad keys
              unmasked (seamless) or the window's edge one key late
-             (danube); timed beside the backward of SDPA. Then the
+             (danube); reading the log-sum-exp the forward writes (held
+             against the plain one); two calls bit-equal; timed beside
+             the backward of SDPA. Then the
              selective scan's backward (no TPU counterpart) at the
              training shape (B 4, S 512, Di 8192, N 16, x bf16) and six
              more: every gradient within MAMBA_BWD_TOL of its largest
@@ -490,6 +492,9 @@ TRAIN_CUT = 2                   # layers of the f32 gradient check
 # apart); a gradient the card dropped would miss by its whole size
 TRAIN_GRAD_TOL = 1e-3
 BWD_F32_TOL = 1e-4              # f32 backward kernel, relative to the max
+# the flash forward's log-sum-exp output against the plain version's (the
+# same f32 sums in another order; a row's value is a few units)
+FLASH_LSE_TOL = 1e-5
 # the selective scan's backward against its plain reverse recurrence, each
 # gradient relative to its largest entry: f32 sums in other orders (dA and
 # dD over B x S terms, dB and dC over Di), and the kernel's ex2.approx
@@ -1148,8 +1153,8 @@ def _time_flash_q_offset(dev) -> tuple:
     k, v = (torch.randn(b, s, kv, d, generator=g, device=dev).bfloat16()
             for _ in range(2))
     do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
-    whole = flash_attention(q, k, v)
-    dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, whole, do)
+    whole, lse_w = flash_attention(q, k, v, return_lse=True)
+    dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, whole, do, lse=lse_w)
     qf, kf, vf = q.float(), k.float(), v.float()
     rout = ref.flash_attention_ref(qf, kf, vf)
     tol = _bf16_tol(rout, _flash_nu(qf, kf, vf, True, 0))
@@ -1161,9 +1166,10 @@ def _time_flash_q_offset(dev) -> tuple:
     for r in range(n):
         end = (r + 1) * c
         qc, doc = q[:, r * c:end].contiguous(), do[:, r * c:end].contiguous()
-        part = flash_attention(qc, k[:, :end], v[:, :end], q_offset=r * c)
+        part, lse = flash_attention(qc, k[:, :end], v[:, :end],
+                                    q_offset=r * c, return_lse=True)
         dq, dk, dv = flash_attention_bwd(qc, k[:, :end], v[:, :end], part,
-                                         doc, q_offset=r * c)
+                                         doc, q_offset=r * c, lse=lse)
         torch.cuda.synchronize()
         check(torch.equal(part, whole[:, r * c:end]),
               f"{what}: chunk {r}'s output bit-equal to the slice")
@@ -1177,7 +1183,7 @@ def _time_flash_q_offset(dev) -> tuple:
         dv_s[:, :end] += dv.float()
         dk_a[:, :end] += dk.float().abs()
         dv_a[:, :end] += dv.float().abs()
-        chunks.append((qc, doc, part))
+        chunks.append((qc, doc, part, lse))
     bwd_ratio = bwd_err = 0.0
     for got, want, mag in ((dk_s, dk_w, dk_a), (dv_s, dv_w, dv_a)):
         lim = (mag + want.float().abs()) * 2.0 ** -8 \
@@ -1193,7 +1199,7 @@ def _time_flash_q_offset(dev) -> tuple:
             qf[:, c:end], kf[:, :end + 1], vf[:, :end + 1],
             q_offset=c + 1)}, what)
     del rout, tol, qf, kf, vf, dk_s, dv_s, dk_a, dv_a
-    qc, doc, part = chunks[-1]
+    qc, doc, part, lse = chunks[-1]
     mask = (torch.arange(s, device=dev)[None, :]
             <= torch.arange(s - c, s, device=dev)[:, None])
     pairs = int(mask.sum())
@@ -1219,7 +1225,7 @@ def _time_flash_q_offset(dev) -> tuple:
     bbytes = 2 * (3 * b * c * h * d + 2 * b * s * kv * d) \
         + 2 * (b * c * h * d + 2 * b * s * kv * d)
     kms = device_ms([lambda: flash_attention_bwd(qc, k, v, part, doc,
-                                                 q_offset=s - c)])
+                                                 q_offset=s - c, lse=lse)])
     pms = device_ms([lambda: ref.flash_attention_bwd_ref(
         qc, k, v, part, doc, q_offset=s - c)], reps=3, per_window=2)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -1398,6 +1404,10 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
     BWD_F32_TOL of the largest entry; the ``traps`` (``"pad"``: the full
     form's pad keys to a whole 64-key tile left unmasked; ``"window"``:
     the window's lower edge one key late) must fall outside that limit.
+    The bf16 backward reads the log-sum-exp that the forward kernel
+    writes on the same q and k (held within FLASH_LSE_TOL of the plain
+    version's, the forward's output bit-equal to a launch without it),
+    and two calls give the same bits.
     Timed (bf16) beside the plain backward
     and the backward of SDPA on the same tensors (a yardstick; the port
     never calls it) against the least time the card needs: q, k, v, o, dO
@@ -1419,7 +1429,9 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
         q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
         o = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                     causal=causal, window=window)
-        return q, k, v, o.to(dtype), do
+        # dense, as the forward kernel hands it over (the plain version's
+        # einsum may leave it permuted, which the wrapper would copy)
+        return q, k, v, o.to(dtype).contiguous(), do
 
     ins = make(torch.float32)
     got = flash_attention_bwd(*ins, causal=causal, window=window)
@@ -1430,9 +1442,24 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
     check(f32 <= BWD_F32_TOL, f"f32 {what} within {BWD_F32_TOL} ({f32})")
     del ins, got, want
     ins = make(torch.bfloat16)
-    got = flash_attention_bwd(*ins, causal=causal, window=window)
+    out, lse = flash_attention(*ins[:3], causal=causal, window=window,
+                               return_lse=True)
+    lse_err = float((lse - ref.flash_attention_lse_ref(
+        *ins[:2], causal=causal, window=window)).abs().max())
+    check(lse_err <= FLASH_LSE_TOL, f"{what}: the forward's LSE within "
+                                    f"{FLASH_LSE_TOL} ({lse_err})")
+    check(torch.equal(out, flash_attention(*ins[:3], causal=causal,
+                                           window=window)),
+          f"{what}: the forward's output bit-equal with and without the "
+          f"LSE")
+    del out
+    got = flash_attention_bwd(*ins, causal=causal, window=window, lse=lse)
+    again = flash_attention_bwd(*ins, causal=causal, window=window, lse=lse)
     want = _bwd_plain(*ins, causal, window)
     torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what}: two calls bit-equal")
+    del again
     err = max(float((x.float() - r).abs().max()) for x, r in zip(got, want))
     rel = max(float((x.float() - r).abs().max() / r.abs().max())
               for x, r in zip(got, want))
@@ -1443,7 +1470,8 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
                 for x, r, t in zip(got, want, tols))
     check(ratio <= 1.0, f"{what} within the bf16 rounding limit ({ratio} "
                         f"of it)")
-    row = dict(err_over_tol=ratio, max_rel_err=rel, f32_max_rel_err=f32)
+    row = dict(err_over_tol=ratio, max_rel_err=rel, f32_max_rel_err=f32,
+               lse_max_abs_err=lse_err, bit_equal_repeat=True)
     if traps:
         q, k, v, o, do = ins
         bad = {}
@@ -1470,8 +1498,11 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
         + 2 * (b * sq * h * d + 2 * b * sk * kv * d)
     sets = [ins] + [make(torch.bfloat16)
                     for _ in range(copies(nbytes) - 1)]
-    kms = device_ms([lambda t=t: flash_attention_bwd(
-        *t, causal=causal, window=window) for t in sets])
+    lses = [lse] + [ref.flash_attention_lse_ref(
+        *t[:2], causal=causal, window=window) for t in sets[1:]]
+    kms = device_ms([lambda t=t, l=l: flash_attention_bwd(
+        *t, causal=causal, window=window, lse=l)
+        for t, l in zip(sets, lses)])
     pms = device_ms([lambda t=t: ref.flash_attention_bwd_ref(
         *t, causal=causal, window=window) for t in sets[:2]], reps=3,
         per_window=2)
@@ -1494,7 +1525,7 @@ def _time_flash_bwd(dev, name, b, sq, sk, h, kv, d, causal, window, seed,
         lib.append((out, (qs, ks, vs), do.transpose(1, 2)))
     lms = device_ms([lambda t=t: torch.autograd.grad(
         t[0], t[1], t[2], retain_graph=True) for t in lib])
-    del lib, sets
+    del lib, sets, lses
     flops = 10 * d * b * h * pairs
     bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     return dict(shape=f"{name}: B={b} Sq={sq} Sk={sk} H={h} KV={kv} hd={d} "

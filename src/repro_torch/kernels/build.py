@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
 Every ``csrc/*.cu`` holds one kernel family behind a plain C entry point
-that launches on the stream it is given and returns ``cudaGetLastError()``.
+that launches on the stream it is given and returns ``cudaGetLastError()``;
+``csrc/*.cuh`` holds device helpers that sources include.
 Each source is compiled on its own by ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``); all sources build in parallel, once per
@@ -50,7 +51,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    """The library of ``src``, named by a hash of its bytes, of every
+    ``csrc/*.cuh`` header (which it may include) and of the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -69,18 +69,23 @@
 // hd 128 the per-thread query and accumulator rows exceed the register
 // file and ptxas spills them to local memory: correct, and slow.
 //
-// C entry point: flash_attention_launch(q, k, v, out, B, S, Sk, H, KV, D,
-// q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
+// The log-sum-exp (optional): where ``lse`` is not null the launch also
+// writes each query row's natural log of the sum of exp(scaled score) over
+// the keys it sees, (B, H, S) f32, +inf for a row that sees none; the
+// backward kernel (csrc/flash_attention_bwd.cu) reads it instead of
+// walking the keys once more. The bf16 design keeps its running max and
+// sum in log2 units, so a row's value is (m + log2 l) ln 2. Where ``lse``
+// is null nothing else changes: the output is the same bits.
+//
+// C entry point: flash_attention_launch(q, k, v, out, lse, B, S, Sk, H, KV,
+// D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
 // q_offset, dtype, stream);
 // head stride D and element stride 1 for every tensor; dtype 0 = float32,
-// 1 = bfloat16.
+// 1 = bfloat16; lse null or (B, H, S) f32 contiguous.
 
-#include <cuda.h>            // CUtensorMap and its enums (types only)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <cmath>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -95,6 +100,7 @@ template <int D>
 __global__ void __launch_bounds__(kRows)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse,
                  int S, int Sk, int H, int KV, long long q_sb, long long q_ss,
                  long long k_sb, long long k_ss, long long v_sb,
                  long long v_ss, long long o_sb, long long o_ss, int causal,
@@ -208,23 +214,25 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dst = out + b * o_sb + qi * o_ss + static_cast<long long>(h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) dst[d] = acc[d] * inv;
+    if (lse != nullptr)
+      lse[(static_cast<long long>(b) * H + h) * S + qi] =
+          l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int Sk, int H, int KV,
-                       long long q_sb, long long q_ss, long long k_sb,
+                       void* out, float* lse, int B, int S, int Sk, int H,
+                       int KV, long long q_sb, long long q_ss, long long k_sb,
                        long long k_ss, long long v_sb, long long v_ss,
                        long long o_sb, long long o_ss, int causal, int window,
                        int q_offset, cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_f32_kernel<D><<<grid, kRows, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Sk, H, KV,
-      q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window, q_offset,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Sk,
+      H, KV, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, window,
+      q_offset, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -238,80 +246,11 @@ constexpr int kStages = 2;         // K/V ring depth
 constexpr int kConsumers = 128;    // one warpgroup
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
 
-// Shared-memory geometry of one 64-row bf16 tile at head width D: stored
-// as D / CC column chunks of 64 rows x CC columns, each row SW bytes and
-// swizzled by the TMA unit in SW-byte atoms of 8 rows. A row of 128 bytes
-// or a multiple takes the 128-byte swizzle, hd 32's 64-byte row the
-// 64-byte one, hd 80's 160-byte row five 32-byte chunks.
+// the query tile, a kStages ring of K and V tiles, 1024-byte alignment
+// slack for the 128-byte swizzle, and the mbarriers
 template <int D>
-struct Geo {
-  static constexpr int SW = D * 2 % 128 == 0 ? 128
-                          : D * 2 == 64 ? 64 : 32;        // swizzle bytes
-  static constexpr int CC = SW / 2;                       // chunk columns
-  static constexpr int NCH = D / CC;                      // chunks per row
-  static constexpr int CHUNK_BYTES = 64 * SW;
-  static constexpr int TILE_BYTES = 64 * D * 2;
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte,
-  // 3 = 32-byte
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static_assert(D % CC == 0 && D % 16 == 0, "hd must split into chunks");
-  static constexpr int SMEM = (1 + 2 * kStages) * TILE_BYTES + 1024 + 64;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// spins until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box (CC columns x 1 head x 64 rows x 1 batch) of a 4-D tensor map
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// one box of a 4-D tensor map from shared memory; rows past the tensor's
-// extent are not written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int col, int head,
-                                          int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col),
-         "r"(head), "r"(row), "r"(batch)
-      : "memory");
+constexpr int smem_bytes() {
+  return (1 + 2 * kStages) * Geo<D>::TILE_BYTES + 1024 + 64;
 }
 
 // barrier 1 over the consumer warpgroup only (barrier 0 is __syncthreads)
@@ -319,193 +258,13 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
 
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout type
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | (static_cast<uint64_t>(lbo >> 4) << 16)
-       | (static_cast<uint64_t>(sbo >> 4) << 32)
-       | (layout << 62);
-}
-
-// Q or K tile as a K-major operand (hd contiguous), at k-step kk (16
-// columns): the step's 32 bytes inside its swizzled chunk
-template <int D>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int kk) {
-  using G = Geo<D>;
-  const int col = kk * 16;
-  return make_desc(base + (col / G::CC) * G::CHUNK_BYTES
-                       + (col % G::CC) * 2,
-                   16, 8 * G::SW, G::LAYOUT);
-}
-
-// V tile as the MN-major B operand of P.V (hd contiguous, keys along K) at
-// k-step kk (16 keys = 16 rows); 64-column chunks lie CHUNK_BYTES apart
-template <int D>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int kk) {
-  using G = Geo<D>;
-  return make_desc(base + kk * 16 * G::SW, G::CHUNK_BYTES, 8 * G::SW,
-                   G::LAYOUT);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// O (64 x D) += P (64 x 16, registers) . V (16 x D, shared memory)
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(o, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (D == 80) wgmma_rs_n80(o, a, db);
-  else wgmma_rs_n128(o, a, db);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap to, int S, int Sk,
+                  const __grid_constant__ CUtensorMap to,
+                  float* __restrict__ lse, int S, int Sk,
                   int H, int KV, int causal, int window, int q_offset,
                   float scale_log2) {
   using G = Geo<D>;
@@ -672,7 +431,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o, a[kk], desc_mnmajor<D>(vs, kk));
+      wgmma_rs<D>(o, a[kk], desc_mnmajor<D>(vs, kk));
     wgmma_commit();
     wgmma_wait0();
     mbar_arrive(empty(st));   // this thread's reads of the stage are done
@@ -684,6 +443,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  if (lse != nullptr && (lane & 3) == 0) {
+    // natural log from the log2-unit max and sum
+    const long long row0 = (static_cast<long long>(b) * H + h) * S;
+    if (r0 < S)
+      lse[row0 + r0] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f
+                                : INFINITY;
+    if (r0 + 8 < S)
+      lse[row0 + r0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f
+                                    : INFINITY;
+  }
   // O in bf16 into the Q tile's buffer (free once every warp's last
   // wgmma has read it), in the swizzled layout of the output's tensor map,
   // then one TMA store per column chunk: 16-byte rows instead of 4-byte
@@ -718,62 +487,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime already
-// loaded (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib == nullptr) return nullptr;
-    return reinterpret_cast<EncodeTiled>(
-        dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// (hd, heads, S, B) bf16 view with element strides (1, D, ss, sb); boxes
-// of CC columns x 1 head x 64 rows x 1 batch
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              long long sb, long long ss) {
-  using G = Geo<D>;
-  const cuuint64_t es = 2;
-  const cuuint64_t hs = D * es;
-  // the stride of an axis of extent 1 is never used: keep it plausible
-  const cuuint64_t s_st = S > 1 ? ss * es : heads * hs;
-  const cuuint64_t b_st = B > 1 ? sb * es : S * s_st;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {hs, s_st, b_st};
-  const cuuint32_t box[4] = {G::CC, 1, kBM, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(ptr), dims, strides, box, elem,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                   : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                 : CU_TENSOR_MAP_SWIZZLE_32B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int Sk, int H, int KV,
-                        long long q_sb, long long q_ss, long long k_sb,
+                        void* out, float* lse, int B, int S, int Sk, int H,
+                        int KV, long long q_sb, long long q_ss, long long k_sb,
                         long long k_ss, long long v_sb, long long v_ss,
                         long long o_sb, long long o_ss, int causal,
                         int window, int q_offset, cudaStream_t stream) {
-  using G = Geo<D>;
   if (encoder() == nullptr) return cudaErrorNotSupported;
   // The tensor maps are encoded on the host and passed by value, so a
   // CUDA graph that captures this launch keeps them, with the addresses
@@ -790,11 +510,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   // launch
   static const cudaError_t allowed = cudaFuncSetAttribute(
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
+      smem_bytes<D>());
   if (allowed != cudaSuccess) return allowed;
   const dim3 grid(H, B, (S + kBM - 1) / kBM);
-  flash_bf16_kernel<D><<<grid, kThreads, G::SMEM, stream>>>(
-      tq, tk, tv, to, S, Sk, H, KV, causal, window, q_offset,
+  flash_bf16_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      tq, tk, tv, to, lse, S, Sk, H, KV, causal, window, q_offset,
       1.4426950408889634f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -802,8 +522,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int Sk, int H, int KV, int D, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int S, int Sk, int H, int KV, int D, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long o_sb, long long o_ss, int causal, int window, int q_offset,
     int dtype, void* stream) {
@@ -812,8 +532,9 @@ extern "C" int flash_attention_launch(
       || (causal && q_offset + S != Sk) || (!causal && q_offset != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, out, B, S, Sk, H, KV, q_sb, q_ss, k_sb, k_ss, \
-                   v_sb, v_ss, o_sb, o_ss, causal, window, q_offset, s
+#define FLASH_ARGS q, k, v, out, static_cast<float*>(lse), B, S, Sk, H, \
+                   KV, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, \
+                   causal, window, q_offset, s
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (D) {

@@ -19,6 +19,10 @@ upcasts, in the model's layouts:
                              grouping (query head h reads KV head h // G);
                              causal query i stands at key position
                              ``q_offset + i``;
+* ``flash_attention_lse_ref`` — each query row's log-sum-exp of its
+                             scaled scores over the keys it sees, the
+                             forward kernel's optional second output
+                             that the backward kernel reads;
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
                              the output and the last state;
@@ -47,7 +51,8 @@ import torch
 NEG_INF = -1e30
 
 __all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "mamba_scan_ref", "mamba_scan_bwd_ref"]
+           "flash_attention_lse_ref", "flash_attention_bwd_ref",
+           "mamba_scan_ref", "mamba_scan_bwd_ref"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,10 +129,10 @@ def _check_offset(name: str, sq: int, sk: int, causal: bool,
                          f"{sq}, Sk {sk})")
 
 
-def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                 window: int, q_offset: int = 0) -> torch.Tensor:
-    """The softmax weights (B, KV, G, Sq, Sk) f32 of query head
-    ``kv * G + g`` over the keys it sees."""
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int, q_offset: int, fill: float) -> torch.Tensor:
+    """The scaled scores (B, KV, G, Sq, Sk) f32 of query head
+    ``kv * G + g``, ``fill`` where a key is not seen."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -139,8 +144,31 @@ def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
         keep = kj <= qi
         if window > 0:
             keep &= kj > qi - window
-        scores = scores.masked_fill(~keep, NEG_INF)
-    return torch.softmax(scores, dim=-1)
+        scores = scores.masked_fill(~keep, fill)
+    return scores
+
+
+def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                 window: int, q_offset: int = 0) -> torch.Tensor:
+    """The softmax weights (B, KV, G, Sq, Sk) f32 of query head
+    ``kv * G + g`` over the keys it sees."""
+    return torch.softmax(_flash_scores(q, k, causal, window, q_offset,
+                                       NEG_INF), dim=-1)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0) -> torch.Tensor:
+    """(B, H, Sq) f32: the natural log of the sum of exp(scaled score)
+    over the keys each query row sees, in ``flash_attention_ref``'s
+    forms; +inf for a row that sees none, so that the backward's
+    P = exp(score - lse) is 0 there."""
+    b, s, h, _ = q.shape
+    _check_offset("flash_attention_lse_ref", s, k.shape[1], causal,
+                  q_offset)
+    lse = torch.logsumexp(_flash_scores(q, k, causal, window, q_offset,
+                                        -math.inf), dim=-1)
+    return lse.masked_fill(lse == -math.inf, math.inf).reshape(b, h, s)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,

@@ -381,10 +381,11 @@ def _flash_attention(out, q, k, v, causal=True, window=0, q_offset=0):
 
 
 def _flash_attention_bwd(out, q, k, v, o, dout, causal=True, window=0,
-                         q_offset=0):
+                         q_offset=0, lse=None):
     # the four products of the jnp attention's derivative: dP = dO V^T,
     # dV = P^T dO, dQ = dS K, dK = dS^T Q
-    return 2 * _attention_flops(q, k), _io_bytes(out, q, k, v, o, dout)
+    return 2 * _attention_flops(q, k), _io_bytes(out, q, k, v, o, dout,
+                                                 lse)
 
 
 def _scan_flops(x, a) -> float:

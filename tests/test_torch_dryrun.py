@@ -427,8 +427,11 @@ def test_flash_attention_forward_and_backward_are_charged():
     assert cost.kernel_calls == {"flash_attention": 1,
                                  "flash_attention_bwd": 1}
     assert cost.flops == pairs + 2 * pairs
-    assert cost.bytes == (_nb(q, k, v, out)
-                          + _nb(q, k, v, out, dout) + _nb(q, k, v))
+    # the forward writes each row's log-sum-exp, (B, H, S) f32, and the
+    # backward reads it
+    lse = 2 * 4 * 8 * 4
+    assert cost.bytes == (_nb(q, k, v, out) + lse
+                          + _nb(q, k, v, out, dout) + lse + _nb(q, k, v))
     _charged_only(cost, "flash_attention", "flash_attention_bwd")
 
 

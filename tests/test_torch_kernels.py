@@ -300,6 +300,52 @@ def test_flash_attention_bwd_ref_matches_jax_grad(b, sq, sk, h, kv, causal,
                                    atol=1e-5 * float(np.abs(jg).max()))
 
 
+_LSE_FORMS = [  # b, sq, sk, h, kv, causal, window, q_offset
+    (2, 70, 70, 4, 2, True, 0, 0),        # causal, a ragged last tile
+    (1, 130, 130, 8, 2, True, 48, 0),     # windowed past the window
+    (2, 33, 77, 4, 4, False, 0, 0),       # full, Sk != Sq
+    (1, 40, 100, 6, 2, True, 0, 60),      # a chunk of queries at q_offset
+    (1, 40, 100, 6, 2, True, 32, 60),     # the same, windowed
+]
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window,q_offset", _LSE_FORMS)
+def test_flash_attention_lse_ref_matches_jax_logsumexp(b, sq, sk, h, kv,
+                                                       causal, window,
+                                                       q_offset, d):
+    """The plain version of the forward's log-sum-exp output, and the
+    wrapper's ``return_lse`` on the CPU, against ``jax.nn.logsumexp`` of
+    the scaled scores as the JAX model's ``sdpa_gqa`` forms them (its
+    ``causal_mask`` with the offset, or none), f32, within 1e-5 (the
+    same sums in another order)."""
+    import jax
+    from repro.models import attention as JA
+    seed = 300 + sq + sk + d + q_offset
+    q = _rand(seed, (b, sq, h, d))
+    k = _rand(seed + 1, (b, sk, kv, d))
+    v = _rand(seed + 2, (b, sk, kv, d))
+    qg = jnp.asarray(q).reshape(b, sq, kv, h // kv, d)
+    scores = jnp.einsum("bqkgd,bskd->bkgqs", qg, jnp.asarray(k),
+                        preferred_element_type=jnp.float32)
+    scores = scores / jnp.sqrt(jnp.asarray(d, jnp.float32))
+    if causal:
+        mask = JA.causal_mask(sq, sk, window, offset=q_offset)
+        scores = jnp.where(mask[None, None, None], scores, JA.NEG_INF)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1)).reshape(b, h, sq)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    got = tref.flash_attention_lse_ref(qt, kt, causal=causal, window=window,
+                                       q_offset=q_offset)
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    out, lse = flash_attention(qt, kt, vt, causal=causal, window=window,
+                               q_offset=q_offset, return_lse=True)
+    assert torch.equal(lse, got)
+    assert torch.equal(out, flash_attention(qt, kt, vt, causal=causal,
+                                            window=window,
+                                            q_offset=q_offset))
+
+
 def test_flash_attention_differentiates_on_the_cpu_and_counts_nothing():
     """On a CPU tensor the wrapper's output carries autograd's graph
     through the plain version, whose gradients are the plain backward's;

@@ -420,6 +420,41 @@ def test_flash_attention_f32_kernel_at_hd80(cuda, mode, s):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+_LSE_FORMS = {  # causal, window, Sq, Sk, q_offset
+    "causal": (True, 0, 200, 200, 0), "window": (True, 48, 200, 200, 0),
+    "full": (False, 0, 130, 77, 0), "q_offset": (True, 0, 72, 200, 128),
+    "q_offset_window": (True, 48, 72, 200, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("form", sorted(_LSE_FORMS))
+def test_flash_attention_lse_output(cuda, dtype, d, form):
+    """The forward's log-sum-exp output: the output of a launch that
+    writes it bit-equal to one that does not, and each row's value within
+    1e-5 of ``torch.logsumexp`` of the plain scaled scores over the keys
+    it sees (``ref.flash_attention_lse_ref``) on the same (upcast)
+    inputs; causal, windowed, full (Sk != Sq) and a chunk at q_offset,
+    GQA group 3, B 2."""
+    causal, window, sq, sk, off = _LSE_FORMS[form]
+    b, h, kv = 2, 6, 2
+    q = torch.from_numpy(_rand(71, (b, sq, h, d))).to(cuda, dtype)
+    k = torch.from_numpy(_rand(72, (b, sk, kv, d))).to(cuda, dtype)
+    v = torch.from_numpy(_rand(73, (b, sk, kv, d))).to(cuda, dtype)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=off, return_lse=True)
+    plain = flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    want = tref.flash_attention_lse_ref(q.float(), k.float(), causal=causal,
+                                        window=window, q_offset=off)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=0)
+
+
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     """Causal and windowed calls need q_offset + Sq <= Sk (and the full
     form no offset); hd 96 has no instantiation; nothing falls back to the
@@ -1126,10 +1161,20 @@ def _rel(a, r, scale=None):
                  / (r.abs().max() if scale is None else scale))
 
 
+def _lse(ins, causal, window):
+    """The forward's log-sum-exp for ``_bwd_case``'s inputs, as the
+    plain version gives it."""
+    return tref.flash_attention_lse_ref(ins[0], ins[1], causal=causal,
+                                        window=window)
+
+
 _BWD_CASES = [(mode, 2, 65, 65, 4, 2) for mode in sorted(_MODES)] + [
     (mode, 1, 200, 200, 14, 2) for mode in sorted(_MODES)] + [
     (mode, 2, 1, 1, 2, 1) for mode in sorted(_MODES)] + [
-    ("full", 3, 33, 77, 4, 4), ("full", 1, 130, 64, 8, 2)]
+    (mode, 1, 130, 130, 16, 2) for mode in sorted(_MODES)] + [
+    ("full", 3, 33, 77, 4, 4), ("full", 1, 130, 64, 8, 2),
+    ("causal", 1, 100, 100, 16, 1), ("window7", 2, 70, 70, 16, 1),
+    ("full", 2, 70, 100, 8, 2)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -1140,9 +1185,12 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, tol, d, mode,
                                                   b, sq, sk, h, kv):
     """dq, dk, dv of the backward kernel against the plain backward on the
     same inputs (o the f32 forward rounded to the dtype; D = dO . o read
-    from it, as the kernel reads it): causal, windowed (7, 100) and full,
-    Sk != Sq in the full form only, tiles ragged on both axes, GQA groups
-    1-7, hd 32-128; f32 within 1e-4 and bf16 within 1e-2 of each
+    from it, as the kernel reads it; the plain log-sum-exp as the forward
+    hands it over): causal, windowed (7, 100) and full, Sk != Sq in the
+    full form only, tiles ragged on both axes, GQA groups 1-7, 8 (a whole
+    cluster of query heads, its last key tile nearly empty at Sk 130) and
+    16 (two heads a block), 4 with the last key tile part-empty, hd
+    32-128; f32 within 1e-4 and bf16 within 1e-2 of each
     gradient's largest entry (the bf16 output's rounding and P's and dS's
     as bf16 operands). At one query
     over one key dq and dk vanish in exact arithmetic: there each is held
@@ -1150,7 +1198,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, tol, d, mode,
     causal, window = _MODES[mode]
     ins = _bwd_case(cuda, dtype, b, sq, sk, h, kv, d, causal, window)
     before = flash_attention_bwd.launches
-    grads = flash_attention_bwd(*ins, causal=causal, window=window)
+    grads = flash_attention_bwd(*ins, causal=causal, window=window,
+                                lse=_lse(ins, causal, window))
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
     refs = tref.flash_attention_bwd_ref(*(t.float() for t in ins),
@@ -1162,12 +1211,15 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, tol, d, mode,
         assert _rel(g, r, scale) <= tol
 
 
-def test_flash_attention_bwd_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("h,kv", [(16, 16), (14, 2), (16, 2)])
+def test_flash_attention_bwd_kernel_is_deterministic(cuda, h, kv):
     """No atomics: two calls give the same bits (the resume check's
-    premise)."""
-    ins = _bwd_case(cuda, torch.bfloat16, 2, 300, 300, 14, 2, 64, True, 0)
-    a = flash_attention_bwd(*ins)
-    b = flash_attention_bwd(*ins)
+    premise), at GQA groups 1 (no cluster), 7 and 8 (the dk, dv partials
+    of a cluster's query heads summed in a fixed order)."""
+    ins = _bwd_case(cuda, torch.bfloat16, 2, 300, 300, h, kv, 64, True, 0)
+    lse = _lse(ins, True, 0)
+    a = flash_attention_bwd(*ins, lse=lse)
+    b = flash_attention_bwd(*ins, lse=lse)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -1204,6 +1256,11 @@ def test_flash_attention_bwd_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention_bwd(q, k, v, o[:, :4], do)
     with pytest.raises(TypeError):
         flash_attention_bwd(q, k, v, o.bfloat16(), do)
+    bf = [t.bfloat16() for t in (q, k, v, o, do)]
+    with pytest.raises(ValueError):   # the bf16 kernel reads the LSE
+        flash_attention_bwd(*bf)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(*bf, lse=torch.zeros(1, 4, 4, device=cuda))
     wide = torch.zeros(1, 8, 2, 96, device=cuda)
     with pytest.raises(ValueError):
         flash_attention_bwd(torch.zeros(1, 8, 4, 96, device=cuda), wide,
@@ -1541,19 +1598,21 @@ def test_flash_attention_q_offset_chunks_equal_slices(cuda, dtype, d,
     q, k, v, do = (torch.from_numpy(_rand(60 + i, sh)).to(cuda, dtype)
                    for i, sh in enumerate(((b, s, h, d), (b, s, kv, d),
                                            (b, s, kv, d), (b, s, h, d))))
-    whole = flash_attention(q, k, v, window=window)
+    whole, lse = flash_attention(q, k, v, window=window, return_lse=True)
     dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, whole, do,
-                                           window=window)
+                                           window=window, lse=lse)
     dk, dv = torch.zeros_like(k, dtype=torch.float32), \
         torch.zeros_like(v, dtype=torch.float32)
     c = s // 4
     for r in range(4):
         end = (r + 1) * c
         qc, doc = q[:, r * c:end].contiguous(), do[:, r * c:end].contiguous()
-        part = flash_attention(qc, k[:, :end], v[:, :end], window=window,
-                               q_offset=r * c)
+        part, lse = flash_attention(qc, k[:, :end], v[:, :end],
+                                    window=window, q_offset=r * c,
+                                    return_lse=True)
         gq, gk, gv = flash_attention_bwd(qc, k[:, :end], v[:, :end], part,
-                                         doc, window=window, q_offset=r * c)
+                                         doc, window=window, q_offset=r * c,
+                                         lse=lse)
         torch.cuda.synchronize()
         assert torch.equal(part, whole[:, r * c:end])
         assert torch.equal(gq, dq_w[:, r * c:end])
