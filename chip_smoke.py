@@ -1330,7 +1330,9 @@ def kernel_mamba(dev) -> dict:
     """The selective scan at the SSM prefill's shapes (falcon-mamba-7b:
     Di 8192, N 16, x bf16): B 1 at the longest prompt (the row's shape)
     and at S 64, the short end of the prefills, then B 2 at an odd length
-    from a nonzero state; y and h_last against the plain scan."""
+    from a nonzero state; y, h_last and the chunk states (the training
+    path's output) against the plain scan, and y and h_last the same bits
+    with and without the states."""
     di, n = 8192, 16
     g = _gen(13)
 
@@ -1350,12 +1352,17 @@ def kernel_mamba(dev) -> dict:
     for b, s, with_h0 in ((1, PROMPT_HI, False), (1, 64, False),
                           (2, 33, True)):
         ins = make(b, s, with_h0)
-        ry, rh = ref.mamba_scan_ref(*ins)
+        ry, rh, rst = ref.mamba_scan_ref(*ins, return_states=True)
         y, h = mamba_scan(*ins)
+        ys, hs, st = mamba_scan(*ins, return_states=True)
         torch.cuda.synchronize()
-        err = max(float((y - ry).abs().max()), float((h - rh).abs().max()))
-        check(err <= SCAN_TOL, f"mamba_scan B={b} S={s} y and h_last "
-                               f"within {SCAN_TOL} ({err})")
+        err = max(float((y - ry).abs().max()), float((h - rh).abs().max()),
+                  float((st - rst).abs().max()))
+        check(err <= SCAN_TOL, f"mamba_scan B={b} S={s} y, h_last and the "
+                               f"chunk states within {SCAN_TOL} ({err})")
+        check(_same_bits(y, ys) and _same_bits(h, hs),
+              f"mamba_scan B={b} S={s}: y and h_last the same bits with "
+              f"and without the states")
         worst = max(worst, err)
     timed = {}
     for b, s in ((1, PROMPT_HI), (1, 64)):
@@ -1369,17 +1376,12 @@ def kernel_mamba(dev) -> dict:
         # products, the N-sum: 6 f32 flops and one exponential; the
         # exponentials are the operation count that binds
         exps = b * s * di * n
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(6 * exps / FP32_FLOP_PER_S, exps / SFU_PER_S) * 1e3
+        bms, by = _scan_bound(nbytes, exps, 6)
         timed[s] = dict(shape=f"B={b} S={s} Di={di} N={n} x bf16, f32 "
                               f"state",
                         ms=kms, plain_ms=pms, library_ms=None,
-                        library=None,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations",
-                        bound_bytes=nbytes, bound_flops=exps,
-                        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+                        library=None, bound_ms=bms, bound_by=by,
+                        bound_bytes=nbytes, bound_flops=exps)
     return dict(name="mamba_scan", max_abs_err=worst, **timed[PROMPT_HI],
                 at_s64=timed[64])
 
@@ -1597,10 +1599,18 @@ def _scan_inputs(dev, g, b, s, di, n, x_dtype, with_h0=False,
 def _scan_bwd_trap(dt, a, bm, cm, d, x, h0, dy, dh, trap: str):
     """``ref.mamba_scan_bwd_ref`` with one kernel bug built in: ``"decay"``
     carries g_{t+1} into step t with step t's own decay e_t, not e_{t+1};
-    ``"h0"`` drops the initial state's term (the states start from zero).
-    Returns its (ddt, da, db, dc, dd, dx)."""
+    ``"h0"`` drops the initial state's term (the states start from zero);
+    ``"late"`` starts each chunk after the first from the forward's state
+    of the chunk before it (the states read a chunk late). Returns its
+    (ddt, da, db, dc, dd, dx)."""
     if trap == "h0":
         return ref.mamba_scan_bwd_ref(dt, a, bm, cm, d, x, None, dy, dh)[:6]
+    if trap == "late":
+        states = ref.mamba_scan_ref(dt, a, bm, cm, d, x, h0,
+                                    return_states=True)[2]
+        late = torch.cat([states[:, :1], states[:, :-1]], dim=1)
+        return ref.mamba_scan_bwd_ref(dt, a, bm, cm, d, x, h0, dy, dh,
+                                      late)[:6]
     xf = x.float()
     h = h0.clone()
     hs = [h]
@@ -1656,23 +1666,38 @@ def _over(got, want, tols) -> dict:
             if w is not None and gt is not None}
 
 
+def _scan_bound(nbytes: float, exps: float, f32_ops: int):
+    """(ms, "bytes" or "operations"): the scan's least time on the card,
+    ``nbytes`` at the memory rate against ``exps`` exponentials at the
+    special-function units' rate or ``f32_ops`` f32 operations each at
+    the f32 rate, whichever takes longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f32_ops * exps / FP32_FLOP_PER_S, exps / SFU_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_mamba_bwd(dev) -> dict:
     """The selective scan's backward (no TPU counterpart) against the
     plain reverse recurrence (``ref.mamba_scan_bwd_ref``) at the training
     shape of falcon-mamba-7b and jamba (B 4, S 512, Di 8192, N 16, x bf16,
     no initial state: the row's shape), B 1 at S 200, S 1, S 77 (a tail
     chunk of 13 steps) over Di 1000 (a tail of 8 channels), N 4 and N 8
-    at Di 256, and f32 with h0 and dh_last at B 2, S 512, Di 8192: every
-    gradient within ``_scan_bwd_limits``; the kernel twice on the same
-    inputs, bit-equal; at the f32 shape the plain version with the decay
-    a step early and with h0's term dropped must fail those limits. Timed
-    (CUDA events, inputs cycled past L2, median of 7) beside the plain
-    version against the least time the card needs: dt, x, dy, B, C, a,
-    D, h0 and dh_last read and every gradient written once, or 2 x B S Di
-    N exponentials (the states are recomputed, not saved by the forward:
-    the decays once for them and once in the reverse pass) at the
+    at Di 256, and f32 with h0 and dh_last at B 2, S 512, Di 8192, each
+    from the chunk states of a forward launch (``return_states``, whose y
+    and h_last must be the same bits as without them): every gradient
+    within ``_scan_bwd_limits``; the kernel twice on the same inputs,
+    bit-equal; at the f32 shape the plain version with the decay a step
+    early, with h0's term dropped and with the states a chunk late must
+    fail those limits. Timed (CUDA events, inputs cycled past L2, median
+    of 7) beside the plain version against the least time the card needs:
+    the backward alone (its states from an untimed forward): dt, x, dy,
+    B, C, a, D, h0, dh_last and the states read and every gradient
+    written once, or B S Di N exponentials (each decay once) at the
     special-function units' rate; no PyTorch call computes the function.
-    The forward kernel is timed at the training shape too."""
+    At the training shape also the forward without the states
+    (``at_forward``), with them (``at_forward_states``: they are written
+    too) and the pair that training runs, the forward with states then
+    the backward (``at_pair``, bound: the two bounds added)."""
     di, n = 8192, 16
     g = _gen(17)
     shapes = {
@@ -1687,8 +1712,14 @@ def kernel_mamba_bwd(dev) -> dict:
     rows = {}
     for key, (b, s, w, nn, xd, with_h0, with_dh) in shapes.items():
         ins = _scan_inputs(dev, g, b, s, w, nn, xd, with_h0, with_dh)
-        got = mamba_scan_bwd(*ins)
-        again = mamba_scan_bwd(*ins)
+        y, h_last, states = mamba_scan(*ins[:7], return_states=True)
+        y0, h0_last = mamba_scan(*ins[:7])
+        check(_same_bits(y, y0) and _same_bits(h_last, h0_last),
+              f"mamba_scan B={b} S={s} Di={w} N={nn}: y and h_last the "
+              f"same bits with and without the states")
+        del y, h_last, y0, h0_last
+        got = mamba_scan_bwd(*ins, states=states)
+        again = mamba_scan_bwd(*ins, states=states)
         # in f32 throughout: a bf16 dx is held against the unrounded value
         want = ref.mamba_scan_bwd_ref(*ins[:5], ins[5].float(), *ins[6:])
         torch.cuda.synchronize()
@@ -1717,7 +1748,8 @@ def kernel_mamba_bwd(dev) -> dict:
         if key == "f32_h0":
             row["traps_over_tol"] = {}
             for trap, what_trap in (("decay", "the decay a step early"),
-                                    ("h0", "h0's term dropped")):
+                                    ("h0", "h0's term dropped"),
+                                    ("late", "the states a chunk late")):
                 bad = _scan_bwd_trap(*ins, trap)
                 r = max(_over(bad, want[:6], tols[:6]).values())
                 row["traps_over_tol"][what_trap] = r
@@ -1727,41 +1759,69 @@ def kernel_mamba_bwd(dev) -> dict:
         del got, again, want, tols
         if key in ("train", "s200"):
             x_b = ins[5].element_size()
+            st_b = states.numel() * 4
             nbytes = (b * s * w * (4 + x_b + 4 + 4 + x_b)
-                      + 4 * b * s * nn * 4 + 2 * w * nn * 4 + 2 * w * 4)
-            exps = 2 * b * s * w * nn
+                      + 4 * b * s * nn * 4 + 2 * w * nn * 4 + 2 * w * 4
+                      + st_b)
+            exps = b * s * w * nn
             sets = [ins] + [_scan_inputs(dev, g, b, s, w, nn, xd)
                             for _ in range(copies(nbytes) - 1)]
-            kms = device_ms([lambda t=t: mamba_scan_bwd(*t) for t in sets])
+            fwd_states = [states] + [mamba_scan(*t[:7],
+                                                return_states=True)[2]
+                                     for t in sets[1:]]
+            kms = device_ms([lambda t=t, st=st: mamba_scan_bwd(
+                *t, states=st) for t, st in zip(sets, fwd_states)])
             pms = device_ms([lambda t=t: ref.mamba_scan_bwd_ref(*t)
                              for t in sets[:2]], reps=3, per_window=2)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            # per state and step 20 f32 operations beside the exponentials
-            t_ops = max(10 * exps / FP32_FLOP_PER_S, exps / SFU_PER_S) * 1e3
+            bms, by = _scan_bound(nbytes, exps, 10)
             row.update(ms=kms, plain_ms=pms, library_ms=None, library=None,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations",
-                       bound_bytes=nbytes, bound_flops=exps,
-                       bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+                       bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                       bound_flops=exps)
             if key == "train":
-                # the forward kernel at the same shape
+                # the forward kernel at the same shape, without and with
+                # the states, and the pair
                 fbytes = (b * s * w * (4 + x_b + 4) + 2 * b * s * nn * 4
                           + w * nn * 4 + w * 4 + b * w * nn * 4)
-                fexps = b * s * w * nn
-                fms = device_ms([lambda t=t: mamba_scan(*t[:7])
-                                 for t in sets])
+                fb, fby = _scan_bound(fbytes, exps, 6)
+                sb, sby = _scan_bound(fbytes + st_b, exps, 6)
                 fpms = device_ms([lambda t=t: ref.mamba_scan_ref(*t[:7])
                                   for t in sets[:2]], reps=3, per_window=2)
-                fb = fbytes / HBM_BYTES_PER_S * 1e3
-                fo = max(6 * fexps / FP32_FLOP_PER_S,
-                         fexps / SFU_PER_S) * 1e3
-                row["forward"] = dict(
-                    shape=row["shape"], ms=fms, plain_ms=fpms,
-                    library_ms=None, bound_ms=max(fb, fo),
-                    bound_by="bytes" if fb >= fo else "operations",
-                    bound_bytes=fbytes, bound_flops=fexps)
-            del sets
+                row["at_forward"] = dict(
+                    shape=row["shape"], ms=device_ms(
+                        [lambda t=t: mamba_scan(*t[:7]) for t in sets]),
+                    plain_ms=fpms, library_ms=None, bound_ms=fb,
+                    bound_by=fby, bound_bytes=fbytes, bound_flops=exps)
+                row["at_forward_states"] = dict(
+                    shape=row["shape"] + ", states written", ms=device_ms(
+                        [lambda t=t: mamba_scan(*t[:7], return_states=True)
+                         for t in sets]),
+                    plain_ms=device_ms(
+                        [lambda t=t: ref.mamba_scan_ref(
+                            *t[:7], return_states=True) for t in sets[:2]],
+                        reps=3, per_window=2),
+                    library_ms=None, bound_ms=sb, bound_by=sby,
+                    bound_bytes=fbytes + st_b, bound_flops=exps)
+
+                def pair(t):
+                    st = mamba_scan(*t[:7], return_states=True)[2]
+                    return mamba_scan_bwd(*t, states=st)
+
+                def plain_pair(t):
+                    st = ref.mamba_scan_ref(*t[:7], return_states=True)[2]
+                    return ref.mamba_scan_bwd_ref(*t, states=st)
+                row["at_pair"] = dict(
+                    shape=row["shape"] + ", the forward with states then "
+                                         "the backward",
+                    ms=device_ms([lambda t=t: pair(t) for t in sets]),
+                    plain_ms=device_ms([lambda t=t: plain_pair(t)
+                                        for t in sets[:2]], reps=3,
+                                       per_window=2),
+                    library_ms=None, bound_ms=sb + bms,
+                    bound_by=f"{sby} + {by}",
+                    bound_bytes=fbytes + st_b + nbytes,
+                    bound_flops=2 * exps)
+            del sets, fwd_states
+        del states
         rows[key] = row
         del ins
     out = dict(name="mamba_scan_bwd", **rows["train"],
@@ -4848,16 +4908,7 @@ def main() -> int:
                          "f32_max_rel_err", "ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms")
                          if key in t[at]}
-                        for at in ("at_qwen3", "at_olmo", "at_moe",
-                                   "at_lse", "at_lse_qwen3", "at_shards_n2",
-                                   "at_shards_n4", "at_shards_n8",
-                                   "at_q_offset",
-                                   "at_jamba", "at_seamless",
-                                   "at_seamless_cross", "at_internvl",
-                                   "at_danube", "at_danube_b8", "at_s200",
-                                   "at_s1", "at_tail", "at_n4", "at_n8",
-                                   "at_f32_h0", "forward")
-                        if at in t}})
+                        for at in t if at.startswith("at_")}})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,8 +43,7 @@
 // The sequence is staged 32 steps at a time (a run) in three buffers with
 // 16-byte cp.async copies (dt and y rows of 128 bytes, x rows of 64 bytes
 // in bf16): run r + 2 is staged while run r computes, into the buffer run
-// r - 1 read. Each thread's share of a run's chunks is the same in every
-// run, so their offsets and source pointers are worked out once. Steps
+// r - 1 read (csrc/scan.cuh stage_run, which the backward shares). Steps
 // past S and channels past Di are staged as zeros (decay 1, input 0), so
 // groups never need a tail case. An operand whose pointer or strides are
 // not 16-byte aligned is staged element by element instead; the model's
@@ -63,119 +62,35 @@
 // y straight from registers were each tried on the H100, and none was
 // faster.
 //
-// C entry point: mamba_scan_launch(dt, a, b, c, d, x, h0, y, h_last, B, S,
-// Di, N, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, x_dtype,
-// stream): dt, b, c and x are read by their (batch, step) element strides
-// with unit stride on the last axis; a (Di, N), d (Di,), h0 (B, Di, N) (or
-// null for a zero state), y (B, S, Di) and h_last (B, Di, N) are contiguous
-// float32; N 4, 8 or 16; x_dtype 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError().
+// The states for the backward: with a non-null `states` each thread also
+// writes its 16 bytes of the state entering every run (before the run's
+// first step), (B, ceil(S / 32), Di, N) f32, which csrc/mamba_scan_bwd.cu
+// reads instead of walking the sequence again. The write is compiled into
+// a second instantiation of the kernel (kWriteStates), so a launch with
+// null runs the kernel as it was without the output: the same code, the
+// same bits.
+//
+// C entry point: mamba_scan_launch(dt, a, b, c, d, x, h0, y, h_last,
+// states, B, S, Di, N, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss,
+// x_dtype, stream): dt, b, c and x are read by their (batch, step) element
+// strides with unit stride on the last axis; a (Di, N), d (Di,), h0
+// (B, Di, N) (or null for a zero state), y (B, S, Di), h_last (B, Di, N)
+// and states (or null) are contiguous float32; N 4, 8 or 16; x_dtype 0 =
+// float32, 1 = bfloat16. Returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "scan.cuh"
+
 namespace {
 
-constexpr int kCh = 32;       // channels per block
-constexpr int kRun = 32;      // steps staged per buffer
 constexpr int kGroup = 8;     // steps unrolled together
-constexpr int kStates = 4;    // states a thread carries (K)
 // staging buffers: runs r, r + 1 and r + 2; run r + 2 is staged while
 // run r computes, into the buffer run r - 1 read
 constexpr int kBufs = 3;
 constexpr int kYPitch = kCh + 4;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// 16-byte copy of which the first `bytes` come from src and the rest are
-// zero-filled (bytes 0: all zeros, src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {  // all but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// One operand's share of a run's staging for one thread. A run is kRun
-// rows of CPR 16-byte chunks (W elements a row in shared memory); the
-// thread owns chunks tid + j * NT, the same ones in every run, so their
-// step, shared-memory offset, source pointer and width are worked out
-// once, and each run only moves the pointers on by kRun steps. Elements
-// at or past `n` in a row and rows at or past S are zero-filled. vec: the
-// source chunks are 16-byte aligned (cp.async), else element copies.
-template <typename T, int CPR, int W, int NT>
-struct Stager {
-  static constexpr int E = 16 / static_cast<int>(sizeof(T));
-  static constexpr int TOTAL = kRun * CPR;
-  static constexpr int J = (TOTAL + NT - 1) / NT;
-  const T* base;    // step 0, element 0 of the row: a harmless address
-  const T* src[J];
-  int tt[J];    // step within the run; kRun for a slot past the run
-  int off[J];   // element offset in the run's buffer
-  int m[J];     // elements of the chunk inside the row
-  long long step;   // elements between runs
-
-  __device__ __forceinline__ Stager(const T* row, long long ss, int e_lo,
-                                    int n, int tid)
-      : base(row), step(kRun * ss) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int e = tid + j * NT;
-      const int c = e % CPR;
-      tt[j] = e < TOTAL ? e / CPR : kRun;
-      off[j] = (e / CPR) * W + c * E;
-      m[j] = min(max(n - (e_lo + c * E), 0), E);
-      src[j] = row + (e < TOTAL ? (e / CPR) * ss : 0) + e_lo + c * E;
-    }
-  }
-
-  // run starting at step t0 into buf; call once per run, in order
-  __device__ __forceinline__ void issue(T* buf, int t0, int S, bool vec) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (tt[j] < kRun) {
-        const int mm = t0 + tt[j] < S ? m[j] : 0;
-        if (vec) {
-          cp_async16(buf + off[j], mm > 0 ? src[j] : base,
-                     mm * static_cast<int>(sizeof(T)));
-        } else {
-#pragma unroll
-          for (int u = 0; u < E; ++u)
-            buf[off[j] + u] = u < mm ? src[j][u] : T(0.f);
-        }
-      }
-      src[j] += step;
-    }
-  }
-};
-
-// K consecutive floats of shared memory (16-byte aligned) into registers
-__device__ __forceinline__ void load_k(float (&v)[kStates],
-                                       const float* src) {
-  const float4 q = *reinterpret_cast<const float4*>(src);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
 
 template <int N, typename TX>
 struct Smem {
@@ -186,13 +101,14 @@ struct Smem {
   float y[kRun][kYPitch];
 };
 
-template <int N, typename TX>
+template <int N, typename TX, bool kWriteStates>
 __global__ void __launch_bounds__(kCh * N / kStates)
 mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
                   const float* __restrict__ bm, const float* __restrict__ cm,
                   const float* __restrict__ dvec, const TX* __restrict__ x,
                   const float* __restrict__ h0, float* __restrict__ y,
-                  float* __restrict__ h_last, int S, int Di, long long dt_sb,
+                  float* __restrict__ h_last, float* __restrict__ states,
+                  int S, int Di, long long dt_sb,
                   long long dt_ss, long long b_sb, long long b_ss,
                   long long c_sb, long long c_ss, long long x_sb,
                   long long x_ss, unsigned vec) {
@@ -230,15 +146,15 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
   const TX* x_r = x + row * x_sb;
   float* y_r = y + static_cast<long long>(row) * S * Di;
 
-  Stager<float, kCh / 4, kCh, NT> st_dt(dt_r, dt_ss, i0, Di, tid);
-  Stager<TX, kCh / XE, kCh, NT> st_x(x_r, x_ss, i0, Di, tid);
-  Stager<float, N / 4, N, NT> st_b(b_r, b_ss, 0, N, tid);
-  Stager<float, N / 4, N, NT> st_c(c_r, c_ss, 0, N, tid);
   auto stage = [&](int r, int buf) {
-    st_dt.issue(&sm.dt[buf][0][0], r * kRun, S, vec & 1u);
-    st_x.issue(&sm.x[buf][0][0], r * kRun, S, vec & 2u);
-    st_b.issue(&sm.b[buf][0][0], r * kRun, S, vec & 4u);
-    st_c.issue(&sm.c[buf][0][0], r * kRun, S, vec & 8u);
+    stage_run<float, kCh / 4, kCh, NT>(&sm.dt[buf][0][0], dt_r, dt_ss, i0,
+                                       Di, r, S, vec & 1u, tid);
+    stage_run<TX, kCh / XE, kCh, NT>(&sm.x[buf][0][0], x_r, x_ss, i0, Di, r,
+                                     S, vec & 2u, tid);
+    stage_run<float, N / 4, N, NT>(&sm.b[buf][0][0], b_r, b_ss, 0, N, r, S,
+                                   vec & 4u, tid);
+    stage_run<float, N / 4, N, NT>(&sm.c[buf][0][0], c_r, c_ss, 0, N, r, S,
+                                   vec & 8u, tid);
   };
 
   const int runs = (S + kRun - 1) / kRun;
@@ -248,8 +164,15 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
   cp_async_commit();
   for (int r = 0; r < runs; ++r) {
     const int buf = r % kBufs;
-    cp_async_wait1();   // this thread's copies of run r landed
-    __syncthreads();    // ... and every other thread's; run r - 1 is done
+    if constexpr (kWriteStates) {
+      // the state entering run r: (B, runs, Di, N), 16 bytes a thread
+      if (live)
+        *reinterpret_cast<float4*>(
+            states + ((static_cast<long long>(row) * runs + r) * Di + i) * N
+            + gl * K) = make_float4(h[0], h[1], h[2], h[3]);
+    }
+    cp_async_wait<1>();   // this thread's copies of run r landed
+    __syncthreads();      // ... and every other thread's; run r - 1 is done
     if (r + 2 < runs) stage(r + 2, (r + 2) % kBufs);
     cp_async_commit();
     const int T = min(kRun, S - r * kRun);
@@ -326,27 +249,23 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
 template <int N, typename TX>
 cudaError_t launch_n(const void* dt, const void* a, const void* b,
                      const void* c, const void* d, const void* x,
-                     const void* h0, void* y, void* h_last, int B, int S,
-                     int Di, long long dt_sb, long long dt_ss, long long b_sb,
-                     long long b_ss, long long c_sb, long long c_ss,
-                     long long x_sb, long long x_ss, cudaStream_t stream) {
-  constexpr long long XE = 16 / sizeof(TX);
-  auto aligned = [](const void* p, long long sb, long long ss, long long e) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % e == 0
-        && ss % e == 0;
-  };
-  const unsigned vec = (aligned(dt, dt_sb, dt_ss, 4) ? 1u : 0u)
-                     | (aligned(x, x_sb, x_ss, XE) ? 2u : 0u)
-                     | (aligned(b, b_sb, b_ss, 4) ? 4u : 0u)
-                     | (aligned(c, c_sb, c_ss, 4) ? 8u : 0u);
+                     const void* h0, void* y, void* h_last, void* states,
+                     int B, int S, int Di, long long dt_sb, long long dt_ss,
+                     long long b_sb, long long b_ss, long long c_sb,
+                     long long c_ss, long long x_sb, long long x_ss,
+                     cudaStream_t stream) {
+  const unsigned vec = aligned_operands<TX>(dt, dt_sb, dt_ss, x, x_sb, x_ss,
+                                            b, b_sb, b_ss, c, c_sb, c_ss);
   const dim3 grid((Di + kCh - 1) / kCh, B);
-  mamba_scan_kernel<N, TX><<<grid, kCh * N / kStates, 0, stream>>>(
+  auto kernel = states == nullptr ? mamba_scan_kernel<N, TX, false>
+                                  : mamba_scan_kernel<N, TX, true>;
+  kernel<<<grid, kCh * N / kStates, 0, stream>>>(
       static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<const float*>(d), static_cast<const TX*>(x),
       static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h_last), S, Di, dt_sb, dt_ss, b_sb, b_ss, c_sb,
-      c_ss, x_sb, x_ss, vec);
+      static_cast<float*>(h_last), static_cast<float*>(states), S, Di,
+      dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, vec);
   return cudaGetLastError();
 }
 
@@ -354,26 +273,24 @@ template <typename TX>
 cudaError_t launch(int N, const void* dt, const void* a,
                    const void* b, const void* c, const void* d,
                    const void* x, const void* h0, void* y, void* h_last,
-                   int B, int S, int Di, long long dt_sb, long long dt_ss,
-                   long long b_sb, long long b_ss, long long c_sb,
-                   long long c_ss, long long x_sb, long long x_ss,
-                   cudaStream_t stream) {
+                   void* states, int B, int S, int Di, long long dt_sb,
+                   long long dt_ss, long long b_sb, long long b_ss,
+                   long long c_sb, long long c_ss, long long x_sb,
+                   long long x_ss, cudaStream_t stream) {
+#define MAMBA_FWD_ARGS                                                     \
+  dt, a, b, c, d, x, h0, y, h_last, states, B, S, Di, dt_sb, dt_ss, b_sb,  \
+      b_ss, c_sb, c_ss, x_sb, x_ss, stream
   switch (N) {
     case 4:
-      return launch_n<4, TX>(dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
-                             dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb,
-                             x_ss, stream);
+      return launch_n<4, TX>(MAMBA_FWD_ARGS);
     case 8:
-      return launch_n<8, TX>(dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
-                             dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb,
-                             x_ss, stream);
+      return launch_n<8, TX>(MAMBA_FWD_ARGS);
     case 16:
-      return launch_n<16, TX>(dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
-                              dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb,
-                              x_ss, stream);
+      return launch_n<16, TX>(MAMBA_FWD_ARGS);
     default:
       return cudaErrorInvalidValue;
   }
+#undef MAMBA_FWD_ARGS
 }
 
 }  // namespace
@@ -381,7 +298,7 @@ cudaError_t launch(int N, const void* dt, const void* a,
 extern "C" int mamba_scan_launch(
     const void* dt, const void* a, const void* b, const void* c,
     const void* d, const void* x, const void* h0, void* y, void* h_last,
-    int B, int S, int Di, int N, long long dt_sb, long long dt_ss,
+    void* states, int B, int S, int Di, int N, long long dt_sb, long long dt_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
     long long x_sb, long long x_ss, int x_dtype, void* stream) {
   if (B < 1 || S < 1 || Di < 1 || B > 65535)
@@ -389,12 +306,13 @@ extern "C" int mamba_scan_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == 0) {
-    err = launch<float>(N, dt, a, b, c, d, x, h0, y, h_last, B, S, Di,
-                        dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, s);
+    err = launch<float>(N, dt, a, b, c, d, x, h0, y, h_last, states, B, S,
+                        Di, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss,
+                        s);
   } else if (x_dtype == 1) {
-    err = launch<__nv_bfloat16>(N, dt, a, b, c, d, x, h0, y, h_last, B,
-                                S, Di, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
-                                x_sb, x_ss, s);
+    err = launch<__nv_bfloat16>(N, dt, a, b, c, d, x, h0, y, h_last,
+                                states, B, S, Di, dt_sb, dt_ss, b_sb, b_ss,
+                                c_sb, c_ss, x_sb, x_ss, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

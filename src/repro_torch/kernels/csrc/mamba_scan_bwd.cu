@@ -8,6 +8,7 @@
 //   dC_t  = sum_d dy_t h_t                   dB_t = sum_d g_t dt_t x_t
 //   dx_t  = dt_t sum_n g_t B_t + D dy_t
 //   ddt_t = sum_n g_t (A e_t h_{t-1} + B_t x_t)
+//         = sum_n A (g_t e_t h_{t-1}) + x_t sum_n g_t B_t
 //   dA    = sum_{b,t} g_t dt_t e_t h_{t-1}   dD = sum_{b,t} dy_t x_t
 //   dh0   = e_0 g_0
 //
@@ -17,135 +18,133 @@
 // so its gradient needs a kernel of its own.
 //
 // Bound on the H100: at falcon-mamba-7b's training shape (B 4, S 512,
-// Di 8192, N 16, x bf16) dt, x, dy, ddt and dx are about 270 MB (0.08 ms at
-// 3.35 TB/s); the states are not saved by the forward, so they are
-// recomputed, and the decays e_t are needed once for that and once for the
-// reverse pass: 2 x 268 M exponentials, 0.13 ms at the special-function
-// units' 16 results per clock per SM. So the exponentials bind. This kernel
-// takes each decay three times (the states at the chunk boundaries, the
-// chunk's states again, the reverse step), and its per-step reductions over
-// channels are shuffles: it is a simple kernel, not a fast one.
+// Di 8192, N 16, x bf16) dt, x, dy, ddt, dx and the forward's chunk states
+// are 303.6 MB (0.0906 ms at 3.35 TB/s), and each decay e_t once is 268 M
+// exponentials (0.0642 ms at the special-function units' 16 results per
+// clock per SM): bytes bind. The work that sets this kernel's time is
+// elsewhere: per state and step about 30 instructions (the recompute, the
+// reverse step, and the sums over channels and over states, which cross
+// lanes), and shared memory holding the chunk's states, which caps the
+// blocks an SM can keep (PERF.md §6 reads each share).
 //
 // Design: one block owns one batch row and 32 channels, as the forward
 // does: a thread holds K = 4 consecutive states of one channel, G = N / 4
 // lanes a channel, 32 * G threads. The recurrence is per channel, so a
-// block needs no other block's states:
-//   1. it walks the sequence forward, states only, and stores the state
-//      entering each chunk of L = 32 steps into a scratch buffer
-//      (B, ceil(S / L), Di, N), which only the thread that wrote an entry
-//      reads back;
-//   2. it walks the chunks in reverse: it stages the chunk's dt, x, dy, B
-//      and C in shared memory, recomputes the chunk's states from the
-//      stored one into shared memory (each thread its own column of
-//      16 bytes a step), then runs the reverse recurrence in registers.
-//      dx and ddt (sums over the channel's lanes: shuffles) go through a
-//      shared-memory tile to coalesced stores. dB_t and dC_t sum over all
-//      Di channels: each warp sums its channels with shuffles, the block
-//      adds its warps in order and writes one partial per block row, and
-//      dA and dD (sums over b and t) stay in registers and are written
-//      per batch row;
-//   3. a second kernel adds the partials in a fixed order.
-// No atomics: two calls give the same bits. Steps past S are never run
-// (a chunk's loops stop at S), and channels past Di carry zeros (decay 1,
-// input 0, dy 0) and write nothing.
+// block needs no other block's states. It walks the 32-step chunks in
+// reverse:
+//   1. the chunk's dt, x, dy, B and C are staged by a two-buffer cp.async
+//      ring: chunk c - 1 loads while chunk c computes; steps past S are
+//      zeros (decay 1, input 0, dy 0), so every chunk runs 32 steps and
+//      only the writes stop at S;
+//   2. the state entering the chunk comes from the forward (`states`, the
+//      16 bytes this thread's counterpart in the forward wrote, read a
+//      chunk ahead). Shared memory holds the states of 16 steps, so the
+//      chunk runs as two halves, the second first: the first half is
+//      walked once for the state entering the second, then each half is
+//      recomputed from the state entering it, its decays kept in
+//      registers (16 x 4 a thread, the loops unrolled) and its states
+//      stored (16 bytes a thread and step). Each decay is taken 1.5 times
+//      a step, never in the reverse step;
+//   3. the reverse recurrence runs in registers, in quads of 4 steps. Each
+//      step's dB and dC products are summed over the warp's channels by a
+//      reduce-scatter over the lanes that hold the same states (3 shuffle
+//      rounds at N 16, 7 shuffles a step), each lane keeping a finished
+//      sum, which it parks where its quad's first state was (no longer
+//      read); after each half the block adds its warps' sums in order and
+//      writes one partial a block. dx and ddt: each lane's terms, already
+//      multiplied by dt and x (D dy on one lane), are reduce-scattered over
+//      the channel's G lanes a quad at a time, and each lane writes the
+//      steps it is left with from registers;
+//   4. a second kernel adds the blocks' partials of dB and dC, and the
+//      batch rows' of dA and dD (sums over t kept in registers), in a
+//      fixed order.
+// No atomics: two calls give the same bits. Channels past Di carry zeros
+// and write nothing.
+//
+// At N 16 a block is 128 threads with 61,440 bytes of shared memory (x
+// bf16; 63,488 with x f32) and at most 168 registers a thread: 3 blocks an
+// SM, 12 warps. Chosen on the card (profiling/scan_bwd_ab.py; PERF.md §6
+// has the runs): the whole chunk's states in shared memory (102 KB a
+// block, 2 blocks an SM) was slower than this, and in that design a
+// thread-block cluster of 8 summing dB and dC through distributed shared
+// memory was slower than one partial a block; dB and dC summed from shared
+// memory once a half was slower than the reduce-scatter, and so was the
+// decay taken again in the reverse step instead of kept.
 //
 // C entry point: mamba_scan_bwd_launch(dt, a, b, c, d, x, h0, dy, dh_last,
-// ddt, da, db, dc, dd, dx, dh0, ckpt, part_bc, part_ad, B, S, Di, N, dt_sb,
-// dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, dy_sb, dy_ss, x_dtype,
+// ddt, da, db, dc, dd, dx, dh0, states, part_bc, part_ad, B, S, Di, N,
+// dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, dy_sb, dy_ss, x_dtype,
 // stream): dt, b, c, x and dy are read by their (batch, step) element
 // strides with unit stride on the last axis; a (Di, N), d (Di,), h0 and
 // dh_last (B, Di, N) (each may be null: zero) are contiguous float32;
-// outputs ddt (B, S, Di), da (Di, N), db and dc (B, S, N), dd (Di,),
-// dh0 (B, Di, N) (null: not written) are contiguous float32 and dx
-// (B, S, Di) contiguous in x's dtype; scratch ckpt (B, ceil(S / 32), Di,
-// N), part_bc (2, B, ceil(Di / 32), S, N) and part_ad (B, Di * (N + 1))
-// float32. N 4, 8 or 16; x_dtype 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError().
+// states (B, ceil(S / 32), Di, N) float32, the forward's states output for
+// the same inputs; outputs ddt (B, S, Di), da (Di, N), db and dc (B, S, N),
+// dd (Di,), dh0 (B, Di, N) (null: not written) are contiguous float32 and
+// dx (B, S, Di) contiguous in x's dtype; scratch part_bc (2, B,
+// ceil(Di / 32), S, N) and part_ad (B, Di * (N + 1)) float32. N 4, 8 or
+// 16; x_dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "scan.cuh"
+
 namespace {
 
-constexpr int kCh = 32;       // channels per block
-constexpr int kChunk = 32;    // steps per chunk (L)
-constexpr int kStates = 4;    // states a thread carries (K)
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kQuad = 4;            // steps whose dx, ddt sums reduce together
+constexpr int kHalf = kRun / 2;     // steps whose states shared memory holds
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// the shared-memory layout of one block, in floats
-template <int N>
-struct Layout {
-  static constexpr int NT = kCh * N / kStates;       // threads
-  static constexpr int W = NT / 32;                  // warps
-  static constexpr int H = 0;                              // [L][NT][K]
-  static constexpr int DT = H + kChunk * NT * kStates;     // [L][kCh]
-  static constexpr int X = DT + kChunk * kCh;              // [L][kCh]
-  static constexpr int DY = X + kChunk * kCh;              // [L][kCh]
-  static constexpr int B = DY + kChunk * kCh;              // [L][N]
-  static constexpr int C = B + kChunk * N;                 // [L][N]
-  static constexpr int DX = C + kChunk * N;                // [L][kCh]
-  static constexpr int DDT = DX + kChunk * kCh;            // [L][kCh]
-  static constexpr int RED = DDT + kChunk * kCh;           // [2][W][L][N]
-  static constexpr int FLOATS = RED + 2 * W * kChunk * N;
-  static constexpr int BYTES = FLOATS * 4;
+template <int N, typename TX>
+struct BwdSmem {
+  static constexpr int NT = kCh * N / kStates;
+  float h[kHalf][NT][kStates];  // h_t of half a chunk; then dB, dC sums
+  float dt[2][kRun][kCh];       // the staging ring
+  float dy[2][kRun][kCh];
+  TX x[2][kRun][kCh];
+  float b[2][kRun][N];
+  float c[2][kRun][N];
 };
 
 template <int N, typename TX>
-__global__ void __launch_bounds__(kCh * N / kStates)
+__global__ void __launch_bounds__(kCh * N / kStates, 3)
 mamba_scan_bwd_kernel(
     const float* __restrict__ dt, const float* __restrict__ a,
     const float* __restrict__ bm, const float* __restrict__ cm,
     const float* __restrict__ dvec, const TX* __restrict__ x,
-    const float* __restrict__ h0, const float* __restrict__ dy,
-    const float* __restrict__ dh_last, float* __restrict__ ddt,
-    TX* __restrict__ dx, float* __restrict__ dh0, float* __restrict__ ckpt,
+    const float* __restrict__ dy, const float* __restrict__ dh_last,
+    const float* __restrict__ states, float* __restrict__ ddt,
+    TX* __restrict__ dx, float* __restrict__ dh0,
     float* __restrict__ part_bc, float* __restrict__ part_ad, int B, int S,
     int Di, long long dt_sb, long long dt_ss, long long b_sb, long long b_ss,
     long long c_sb, long long c_ss, long long x_sb, long long x_ss,
-    long long dy_sb, long long dy_ss) {
+    long long dy_sb, long long dy_ss, unsigned vec) {
   constexpr int K = kStates;
   constexpr int G = N / K;                 // lanes per channel
-  using Lay = Layout<N>;
-  constexpr int NT = Lay::NT;
-  static_assert(K <= N && N % K == 0 && NT % 32 == 0, "K, N");
-  extern __shared__ __align__(16) float smem[];
-  float* s_h = smem + Lay::H;
-  float* s_dt = smem + Lay::DT;
-  float* s_x = smem + Lay::X;
-  float* s_dy = smem + Lay::DY;
-  float* s_b = smem + Lay::B;
-  float* s_c = smem + Lay::C;
-  float* s_dx = smem + Lay::DX;
-  float* s_ddt = smem + Lay::DDT;
-  float* s_red = smem + Lay::RED;
+  constexpr int NT = kCh * G;              // threads per block
+  constexpr int W = NT / 32;               // warps
+  constexpr int U = kQuad / G;             // steps a dB, dC reduce-scatter
+  constexpr int XE = 16 / static_cast<int>(sizeof(TX));
+  static_assert(K <= N && N % K == 0 && NT % 32 == 0 && U * G == kQuad
+                && kHalf % kQuad == 0, "K, N and the quad");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<N, TX>& sm = *reinterpret_cast<BwdSmem<N, TX>*>(smem_raw);
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int cl = tid / G;                  // channel within the block
   const int gl = tid % G;                  // lane within the channel
-  const int warp = tid / 32;
   const int row = blockIdx.y;
   const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
   const int i0 = blk * kCh;
   const int i = i0 + cl;
   const bool live = i < Di;
-  const int nc = (S + kChunk - 1) / kChunk;
+  const int nc = (S + kRun - 1) / kRun;
   const long long state0 =
       (static_cast<long long>(row) * Di + i) * N + gl * K;
 
@@ -158,67 +157,31 @@ mamba_scan_bwd_kernel(
   const float d_i = live ? dvec[i] : 0.f;
 
   const float* dt_r = dt + row * dt_sb;
-  const float* b_r = bm + row * b_sb;
-  const float* c_r = cm + row * c_sb;
   const TX* x_r = x + row * x_sb;
   const float* dy_r = dy + row * dy_sb;
-
-  // a chunk's T steps of the block's channels (zeros past Di) and of B
-  // (and C and dy with `all`) into shared memory
-  auto stage = [&](int t0, int T, bool all) {
-    for (int e = tid; e < T * kCh; e += NT) {
-      const int tt = e / kCh, ch = e % kCh;
-      const bool in = i0 + ch < Di;
-      const long long t = t0 + tt;
-      s_dt[e] = in ? dt_r[t * dt_ss + i0 + ch] : 0.f;
-      s_x[e] = in ? to_f(x_r[t * x_ss + i0 + ch]) : 0.f;
-      if (all) s_dy[e] = in ? dy_r[t * dy_ss + i0 + ch] : 0.f;
-    }
-    for (int e = tid; e < T * N; e += NT) {
-      const long long t = t0 + e / N;
-      s_b[e] = b_r[t * b_ss + e % N];
-      if (all) s_c[e] = c_r[t * c_ss + e % N];
-    }
+  const float* b_r = bm + row * b_sb;
+  const float* c_r = cm + row * c_sb;
+  auto stage = [&](int r, int buf) {
+    stage_run<float, kCh / 4, kCh, NT>(&sm.dt[buf][0][0], dt_r, dt_ss, i0,
+                                       Di, r, S, vec & 1u, tid);
+    stage_run<TX, kCh / XE, kCh, NT>(&sm.x[buf][0][0], x_r, x_ss, i0, Di, r,
+                                     S, vec & 2u, tid);
+    stage_run<float, N / 4, N, NT>(&sm.b[buf][0][0], b_r, b_ss, 0, N, r, S,
+                                   vec & 4u, tid);
+    stage_run<float, N / 4, N, NT>(&sm.c[buf][0][0], c_r, c_ss, 0, N, r, S,
+                                   vec & 8u, tid);
+    stage_run<float, kCh / 4, kCh, NT>(&sm.dy[buf][0][0], dy_r, dy_ss, i0,
+                                       Di, r, S, vec & 16u, tid);
   };
-  // the chunk's forward steps from h, storing each state when `keep`
-  auto forward = [&](float (&h)[K], int T, bool keep) {
-    for (int tt = 0; tt < T; ++tt) {
-      const float dtv = s_dt[tt * kCh + cl];
-      const float dtx = dtv * s_x[tt * kCh + cl];
-      const float4 bq = *reinterpret_cast<const float4*>(
-          &s_b[tt * N + gl * K]);
-      const float bk[K] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        h[k] = fmaf(ex2(dtv * a2[k]), h[k], dtx * bk[k]);
-      if (keep)
-        *reinterpret_cast<float4*>(&s_h[(tt * NT + tid) * K]) =
-            make_float4(h[0], h[1], h[2], h[3]);
-    }
+  // the state entering chunk c, as the forward wrote it
+  const float* st_in = states
+      + (static_cast<long long>(row) * nc * Di + i) * N + gl * K;
+  auto entry = [&](int c) {
+    return live ? *reinterpret_cast<const float4*>(
+                      st_in + c * static_cast<long long>(Di) * N)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
-  // 1. the state entering every chunk
-  float* ck = ckpt + (static_cast<long long>(row) * nc * Di + i) * N
-      + gl * K;
-  const long long ck_step = static_cast<long long>(Di) * N;
-  {
-    float h[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      h[k] = (live && h0 != nullptr) ? h0[state0 + k] : 0.f;
-    for (int c = 0; c < nc; ++c) {
-      if (live)
-        *reinterpret_cast<float4*>(ck + c * ck_step) =
-            make_float4(h[0], h[1], h[2], h[3]);
-      if (c + 1 == nc) break;          // the last chunk's states: step 2
-      __syncthreads();
-      stage(c * kChunk, kChunk, false);
-      __syncthreads();
-      forward(h, kChunk, false);
-    }
-  }
-
-  // 2. the chunks in reverse
   float g[K], acc_a[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -226,108 +189,175 @@ mamba_scan_bwd_kernel(
     acc_a[k] = 0.f;
   }
   float acc_d = 0.f;
+  float4 next = entry(nc - 1);
+  stage(nc - 1, (nc - 1) & 1);
+  cp_async_commit();
   for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * kChunk;
-    const int T = min(kChunk, S - t0);
-    __syncthreads();                   // the last chunk's tiles are read
-    stage(t0, T, true);
-    __syncthreads();
-    float hs[K], h[K];
-    if (live) {
-      const float4 q = *reinterpret_cast<const float4*>(ck + c * ck_step);
-      hs[0] = q.x; hs[1] = q.y; hs[2] = q.z; hs[3] = q.w;
-    } else {
+    const int buf = c & 1;
+    const int t0 = c * kRun;
+    cp_async_wait<0>();   // this thread's copies of chunk c landed
+    __syncthreads();      // ... and every thread's; chunk c + 1 is out
+    if (c > 0) stage(c - 1, buf ^ 1);
+    cp_async_commit();
+    const float hs[K] = {next.x, next.y, next.z, next.w};
+    if (c > 0) next = entry(c - 1);
+
+    // the state entering the chunk's second half: the first half walked
+    float hm[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) hs[k] = 0.f;
+    for (int k = 0; k < K; ++k) hm[k] = hs[k];
+#pragma unroll
+    for (int tt = 0; tt < kHalf; ++tt) {
+      const float dtv = sm.dt[buf][tt][cl];
+      const float dtx = dtv * to_f(sm.x[buf][tt][cl]);
+      float bk[K];
+      load_k(bk, &sm.b[buf][tt][gl * K]);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        hm[k] = fmaf(ex2(dtv * a2[k]), hm[k], dtx * bk[k]);
     }
+
+    // each half from the state entering it: its states (the decays kept),
+    // then its reverse recurrence a quad of steps at a time
+    for (int half = 1; half >= 0; --half) {
+      const int base = half * kHalf;
+      float h_in[K], e[kHalf][K], h[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) h[k] = hs[k];
-    forward(h, T, true);               // s_h: this thread's h_t, t in chunk
-    for (int tt = T - 1; tt >= 0; --tt) {
-      const float dtv = s_dt[tt * kCh + cl];
-      const float xv = s_x[tt * kCh + cl];
-      const float dyv = s_dy[tt * kCh + cl];
-      const float dtx = dtv * xv;
-      const float4 bq = *reinterpret_cast<const float4*>(
-          &s_b[tt * N + gl * K]);
-      const float4 cq = *reinterpret_cast<const float4*>(
-          &s_c[tt * N + gl * K]);
-      const float4 htq = *reinterpret_cast<const float4*>(
-          &s_h[(tt * NT + tid) * K]);
-      float hp[K];
-      if (tt > 0) {
-        const float4 q = *reinterpret_cast<const float4*>(
-            &s_h[((tt - 1) * NT + tid) * K]);
-        hp[0] = q.x; hp[1] = q.y; hp[2] = q.z; hp[3] = q.w;
-      } else {
+      for (int k = 0; k < K; ++k) h[k] = h_in[k] = half ? hm[k] : hs[k];
 #pragma unroll
-        for (int k = 0; k < K; ++k) hp[k] = hs[k];
-      }
-      const float bk[K] = {bq.x, bq.y, bq.z, bq.w};
-      const float cc[K] = {cq.x, cq.y, cq.z, cq.w};
-      const float ht[K] = {htq.x, htq.y, htq.z, htq.w};
-      float pb[K], pc[K], sdx = 0.f, sddt = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float e = ex2(dtv * a2[k]);
-        const float gk = fmaf(dyv, cc[k], g[k]);
-        pc[k] = dyv * ht[k];
-        pb[k] = gk * dtx;
-        sdx = fmaf(gk, bk[k], sdx);
-        const float eh = e * hp[k];
-        sddt = fmaf(gk, fmaf(av[k], eh, bk[k] * xv), sddt);
-        acc_a[k] = fmaf(gk * dtv, eh, acc_a[k]);
-        g[k] = e * gk;
-      }
-      // the channel's lanes: dx and ddt
-#pragma unroll
-      for (int o = 1; o < G; o <<= 1) {
-        sdx += __shfl_xor_sync(0xffffffffu, sdx, o);
-        sddt += __shfl_xor_sync(0xffffffffu, sddt, o);
-      }
-      // the warp's channels: dB_t and dC_t for the lane's states
-#pragma unroll
-      for (int o = G; o < 32; o <<= 1) {
+      for (int tl = 0; tl < kHalf; ++tl) {
+        const int t = base + tl;
+        const float dtv = sm.dt[buf][t][cl];
+        const float dtx = dtv * to_f(sm.x[buf][t][cl]);
+        float bk[K];
+        load_k(bk, &sm.b[buf][t][gl * K]);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          pb[k] += __shfl_xor_sync(0xffffffffu, pb[k], o);
-          pc[k] += __shfl_xor_sync(0xffffffffu, pc[k], o);
+          e[tl][k] = ex2(dtv * a2[k]);
+          h[k] = fmaf(e[tl][k], h[k], dtx * bk[k]);
+        }
+        if (tl + 1 < kHalf)     // the half's last state stays in registers
+          *reinterpret_cast<float4*>(&sm.h[tl][tid][0]) =
+              make_float4(h[0], h[1], h[2], h[3]);
+      }
+      float ht[K];   // h_t
+#pragma unroll
+      for (int k = 0; k < K; ++k) ht[k] = h[k];
+#pragma unroll
+      for (int q = kHalf / kQuad - 1; q >= 0; --q) {
+        float sx[kQuad], sd[kQuad];   // this lane's dx and ddt terms
+        float slot[4] = {0.f, 0.f, 0.f, 0.f};   // finished dB, dC sums
+        float p[8 * U];               // dB, dC products of U steps
+#pragma unroll
+        for (int j = kQuad - 1; j >= 0; --j) {
+          const int tl = q * kQuad + j;
+          const int t = base + tl;
+          const int u = j % U;
+          const float dtv = sm.dt[buf][t][cl];
+          const float dyv = sm.dy[buf][t][cl];
+          const float xv = to_f(sm.x[buf][t][cl]);
+          const float dtx = dtv * xv;
+          float bk[K], ck[K], hp[K];
+          load_k(bk, &sm.b[buf][t][gl * K]);
+          load_k(ck, &sm.c[buf][t][gl * K]);
+          if (tl > 0) {
+            load_k(hp, &sm.h[tl - 1][tid][0]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < K; ++k) hp[k] = h_in[k];
+          }
+          float sdx = 0.f, sdd = 0.f;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float ek = e[tl][k];
+            const float gk = fmaf(dyv, ck[k], g[k]);
+            p[(u * 2) * K + k] = gk * dtx;          // dB_t's term
+            p[(u * 2 + 1) * K + k] = dyv * ht[k];   // dC_t's term
+            sdx = fmaf(gk, bk[k], sdx);
+            const float qk = gk * (ek * hp[k]);
+            sdd = fmaf(av[k], qk, sdd);
+            acc_a[k] = fmaf(qk, dtv, acc_a[k]);
+            g[k] = ek * gk;
+            ht[k] = hp[k];
+          }
+          // this lane's terms of dx_t (D dy_t on one lane) and ddt_t
+          sx[j] = fmaf(dtv, sdx, gl == 0 ? d_i * dyv : 0.f);
+          sd[j] = fmaf(xv, sdx, sdd);
+          acc_d = fmaf(dyv, xv, acc_d);
+          if (u == 0) {
+            // reduce-scatter the 8U products over the lanes holding the
+            // same states (lane bits G .. 16): each round a lane keeps one
+            // half, adds its partner's copy of it, and ends with the sum
+            // of value v = lane / G: step j + v / 8, dC if v & 4, state
+            // v % 4
+#pragma unroll
+            for (int o = 16, hw = 4 * U; o >= G; o >>= 1, hw >>= 1) {
+              const bool hi = (lane & o) != 0;
+#pragma unroll
+              for (int m = 0; m < hw; ++m) {
+                const float send = hi ? p[m] : p[m + hw];
+                const float keep = hi ? p[m + hw] : p[m];
+                p[m] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+              }
+            }
+            slot[j / U] = p[0];
+          }
+        }
+        // the quad's sums go where h_{4q} was (read at step 4q + 1)
+        *reinterpret_cast<float4*>(&sm.h[q * kQuad][tid][0]) =
+            make_float4(slot[0], slot[1], slot[2], slot[3]);
+        // dx and ddt: reduce-scatter 2 x 4 terms over the channel's lanes,
+        // each lane left with steps gl * U .. gl * U + U - 1, which it
+        // writes
+        float r[2 * kQuad];
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) {
+          r[2 * j] = sx[j];
+          r[2 * j + 1] = sd[j];
+        }
+#pragma unroll
+        for (int o = G / 2, hw = kQuad; o >= 1; o >>= 1, hw >>= 1) {
+          const bool hi = (gl & o) != 0;
+#pragma unroll
+          for (int m = 0; m < hw; ++m) {
+            const float send = hi ? r[m] : r[m + hw];
+            const float keep = hi ? r[m + hw] : r[m];
+            r[m] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int t = t0 + base + q * kQuad + gl * U + u;
+          if (live && t < S) {
+            const long long at = (static_cast<long long>(row) * S + t) * Di
+                + i;
+            from_f(dx + at, r[2 * u]);
+            ddt[at] = r[2 * u + 1];
+          }
         }
       }
-      if (gl == 0) {
-        s_dx[tt * kCh + cl] = fmaf(dtv, sdx, d_i * dyv);
-        s_ddt[tt * kCh + cl] = sddt;
-        acc_d = fmaf(dyv, xv, acc_d);
-      }
-      if ((tid & 31) < G) {
+      __syncthreads();   // every warp's dB, dC sums of the half
+
+      // the block's dB and dC of the half: its warps' sums in order
+      for (int e2 = tid; e2 < 2 * kHalf * N; e2 += NT) {
+        const int which = e2 / (kHalf * N);
+        const int tl = (e2 / N) % kHalf;
+        const int n = e2 % N;
+        const int j = tl % kQuad;
+        const int v = ((j % U) * 2 + which) * K + n % K;
+        const float* src = &sm.h[tl - j][0][0] + (v * G + n / K) * K + j / U;
+        float sum = 0.f;
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          s_red[(warp * kChunk + tt) * N + gl * K + k] = pb[k];
-          s_red[((Lay::W + warp) * kChunk + tt) * N + gl * K + k] = pc[k];
-        }
+        for (int w = 0; w < W; ++w) sum += src[w * 32 * K];
+        const int t = t0 + base + tl;
+        if (t < S)
+          part_bc[(((static_cast<long long>(which) * B + row) * gridDim.x
+                    + blk) * S + t) * N + n] = sum;
       }
-    }
-    __syncthreads();
-    // the chunk's dx and ddt rows, and the block's dB and dC partials
-    float* ddt_r = ddt + (static_cast<long long>(row) * S + t0) * Di + i0;
-    TX* dx_r = dx + (static_cast<long long>(row) * S + t0) * Di + i0;
-    for (int e = tid; e < T * kCh; e += NT) {
-      const int tt = e / kCh, ch = e % kCh;
-      if (i0 + ch < Di) {
-        ddt_r[static_cast<long long>(tt) * Di + ch] = s_ddt[e];
-        from_f(dx_r + static_cast<long long>(tt) * Di + ch, s_dx[e]);
-      }
-    }
-    for (int e = tid; e < 2 * T * N; e += NT) {
-      const int which = e / (T * N), r = e % (T * N);
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < Lay::W; ++w)
-        sum += s_red[((which * Lay::W + w) * kChunk) * N + r];
-      part_bc[(((static_cast<long long>(which) * B + row) * nblk + blk)
-               * S + t0) * N + r] = sum;
+      if (half) __syncthreads();   // the first half's states reuse the rows
     }
   }
+  // dD: every lane of a channel summed all its steps
   if (live) {
     float* pa = part_ad + static_cast<long long>(row) * Di * (N + 1);
 #pragma unroll
@@ -340,69 +370,83 @@ mamba_scan_bwd_kernel(
 }
 
 // db and dc: the blocks' partials; da and dd: the batch rows' partials,
-// each summed in a fixed order
-__global__ void mamba_scan_bwd_reduce(
+// each summed in a fixed order. A block takes 32 outputs: warp w adds the
+// w-th of kParts runs of partials for each (coalesced along the outputs),
+// and warp 0 adds the runs in order.
+constexpr int kParts = 8;
+
+__global__ void __launch_bounds__(32 * kParts)
+mamba_scan_bwd_reduce(
     const float* __restrict__ part_bc, const float* __restrict__ part_ad,
     float* __restrict__ da, float* __restrict__ db, float* __restrict__ dc,
     float* __restrict__ dd, int B, int S, int Di, int N, int nblk) {
+  __shared__ float run[kParts][32];
   const long long bsn = static_cast<long long>(B) * S * N;
   const long long sn = static_cast<long long>(S) * N;
   const long long dn = static_cast<long long>(Di) * N;
   const long long total = 2 * bsn + dn + Di;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x)
-           + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
-    if (e < 2 * bsn) {
-      const long long which = e / bsn, r = e % bsn;
-      const long long row = r / sn, t = r % sn;
-      const float* p = part_bc + ((which * B + row) * nblk) * sn + t;
-      for (int k = 0; k < nblk; ++k) sum += p[k * sn];
-      (which == 0 ? db : dc)[r] = sum;
-    } else {
-      const long long j = e - 2 * bsn;     // da's entries, then dd's
-      for (int row = 0; row < B; ++row)
-        sum += part_ad[row * (dn + Di) + j];
-      if (j < dn) da[j] = sum; else dd[j - dn] = sum;
-    }
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const long long e = blockIdx.x * 32LL + lane;
+  float sum = 0.f;
+  if (e < 2 * bsn) {
+    const long long which = e / bsn, r = e % bsn;
+    const long long row = r / sn, t = r % sn;
+    const float* p = part_bc + ((which * B + row) * nblk) * sn + t;
+    const int per = (nblk + kParts - 1) / kParts;
+    const int k1 = min(nblk, (w + 1) * per);
+    for (int k = w * per; k < k1; ++k) sum += p[k * sn];
+  } else if (e < total && w == 0) {
+    const long long j = e - 2 * bsn;     // da's entries, then dd's
+    for (int row = 0; row < B; ++row) sum += part_ad[row * (dn + Di) + j];
+  }
+  run[w][lane] = sum;
+  __syncthreads();
+  if (w != 0 || e >= total) return;
+  sum = run[0][lane];
+#pragma unroll
+  for (int m = 1; m < kParts; ++m) sum += run[m][lane];
+  if (e < 2 * bsn) {
+    (e < bsn ? db : dc)[e % bsn] = sum;
+  } else {
+    const long long j = e - 2 * bsn;
+    if (j < dn) da[j] = sum; else dd[j - dn] = sum;
   }
 }
 
 template <int N, typename TX>
 cudaError_t launch_n(const void* dt, const void* a, const void* b,
                      const void* c, const void* d, const void* x,
-                     const void* h0, const void* dy, const void* dh_last,
+                     const void* dy, const void* dh_last, const void* states,
                      void* ddt, void* da, void* db, void* dc, void* dd,
-                     void* dx, void* dh0, void* ckpt, void* part_bc,
-                     void* part_ad, int B, int S, int Di, long long dt_sb,
-                     long long dt_ss, long long b_sb, long long b_ss,
-                     long long c_sb, long long c_ss, long long x_sb,
-                     long long x_ss, long long dy_sb, long long dy_ss,
-                     cudaStream_t stream) {
-  using Lay = Layout<N>;
+                     void* dx, void* dh0, void* part_bc, void* part_ad,
+                     int B, int S, int Di, long long dt_sb, long long dt_ss,
+                     long long b_sb, long long b_ss, long long c_sb,
+                     long long c_ss, long long x_sb, long long x_ss,
+                     long long dy_sb, long long dy_ss, cudaStream_t stream) {
+  constexpr int smem = static_cast<int>(sizeof(BwdSmem<N, TX>));
   auto kernel = mamba_scan_bwd_kernel<N, TX>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nblk = (Di + kCh - 1) / kCh;
-  kernel<<<dim3(nblk, B), Lay::NT, Lay::BYTES, stream>>>(
+  const unsigned vec = aligned_operands<TX>(dt, dt_sb, dt_ss, x, x_sb, x_ss,
+                                            b, b_sb, b_ss, c, c_sb, c_ss,
+                                            dy, dy_sb, dy_ss);
+  kernel<<<dim3(nblk, B), kCh * N / kStates, smem, stream>>>(
       static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<const float*>(d), static_cast<const TX*>(x),
-      static_cast<const float*>(h0), static_cast<const float*>(dy),
-      static_cast<const float*>(dh_last), static_cast<float*>(ddt),
+      static_cast<const float*>(dy), static_cast<const float*>(dh_last),
+      static_cast<const float*>(states), static_cast<float*>(ddt),
       static_cast<TX*>(dx), static_cast<float*>(dh0),
-      static_cast<float*>(ckpt), static_cast<float*>(part_bc),
-      static_cast<float*>(part_ad), B, S, Di, dt_sb, dt_ss, b_sb, b_ss,
-      c_sb, c_ss, x_sb, x_ss, dy_sb, dy_ss);
+      static_cast<float*>(part_bc), static_cast<float*>(part_ad), B, S, Di,
+      dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss, dy_sb, dy_ss, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = 2LL * B * S * N + static_cast<long long>(Di) * N
       + Di;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  mamba_scan_bwd_reduce<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
-                          threads, 0, stream>>>(
+  mamba_scan_bwd_reduce<<<static_cast<int>((total + 31) / 32), 32 * kParts,
+                          0, stream>>>(
       static_cast<const float*>(part_bc), static_cast<const float*>(part_ad),
       static_cast<float*>(da), static_cast<float*>(db),
       static_cast<float*>(dc), static_cast<float*>(dd), B, S, Di, N, nblk);
@@ -412,16 +456,15 @@ cudaError_t launch_n(const void* dt, const void* a, const void* b,
 template <typename TX>
 cudaError_t launch(int N, const void* dt, const void* a, const void* b,
                    const void* c, const void* d, const void* x,
-                   const void* h0, const void* dy, const void* dh_last,
+                   const void* dy, const void* dh_last, const void* states,
                    void* ddt, void* da, void* db, void* dc, void* dd,
-                   void* dx, void* dh0, void* ckpt, void* part_bc,
-                   void* part_ad, int B, int S, int Di, long long dt_sb,
-                   long long dt_ss, long long b_sb, long long b_ss,
-                   long long c_sb, long long c_ss, long long x_sb,
-                   long long x_ss, long long dy_sb, long long dy_ss,
-                   cudaStream_t stream) {
+                   void* dx, void* dh0, void* part_bc, void* part_ad, int B,
+                   int S, int Di, long long dt_sb, long long dt_ss,
+                   long long b_sb, long long b_ss, long long c_sb,
+                   long long c_ss, long long x_sb, long long x_ss,
+                   long long dy_sb, long long dy_ss, cudaStream_t stream) {
 #define MAMBA_BWD_ARGS                                                     \
-  dt, a, b, c, d, x, h0, dy, dh_last, ddt, da, db, dc, dd, dx, dh0, ckpt,  \
+  dt, a, b, c, d, x, dy, dh_last, states, ddt, da, db, dc, dd, dx, dh0,    \
       part_bc, part_ad, B, S, Di, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,    \
       x_sb, x_ss, dy_sb, dy_ss, stream
   switch (N) {
@@ -443,23 +486,25 @@ extern "C" int mamba_scan_bwd_launch(
     const void* dt, const void* a, const void* b, const void* c,
     const void* d, const void* x, const void* h0, const void* dy,
     const void* dh_last, void* ddt, void* da, void* db, void* dc, void* dd,
-    void* dx, void* dh0, void* ckpt, void* part_bc, void* part_ad, int B,
-    int S, int Di, int N, long long dt_sb, long long dt_ss, long long b_sb,
-    long long b_ss, long long c_sb, long long c_ss, long long x_sb,
-    long long x_ss, long long dy_sb, long long dy_ss, int x_dtype,
-    void* stream) {
-  if (B < 1 || S < 1 || Di < 1 || B > 65535)
+    void* dx, void* dh0, const void* states, void* part_bc, void* part_ad,
+    int B, int S, int Di, int N, long long dt_sb, long long dt_ss,
+    long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+    long long x_sb, long long x_ss, long long dy_sb, long long dy_ss,
+    int x_dtype, void* stream) {
+  // h0 enters only through the states (the first chunk's is h0) and dh0
+  (void)h0;
+  if (B < 1 || S < 1 || Di < 1 || B > 65535 || states == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == 0) {
-    err = launch<float>(N, dt, a, b, c, d, x, h0, dy, dh_last, ddt, da, db,
-                        dc, dd, dx, dh0, ckpt, part_bc, part_ad, B, S, Di,
+    err = launch<float>(N, dt, a, b, c, d, x, dy, dh_last, states, ddt, da,
+                        db, dc, dd, dx, dh0, part_bc, part_ad, B, S, Di,
                         dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, x_sb, x_ss,
                         dy_sb, dy_ss, s);
   } else if (x_dtype == 1) {
-    err = launch<__nv_bfloat16>(N, dt, a, b, c, d, x, h0, dy, dh_last, ddt,
-                                da, db, dc, dd, dx, dh0, ckpt, part_bc,
+    err = launch<__nv_bfloat16>(N, dt, a, b, c, d, x, dy, dh_last, states,
+                                ddt, da, db, dc, dd, dx, dh0, part_bc,
                                 part_ad, B, S, Di, dt_sb, dt_ss, b_sb, b_ss,
                                 c_sb, c_ss, x_sb, x_ss, dy_sb, dy_ss, s);
   } else {

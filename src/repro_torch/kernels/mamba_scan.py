@@ -6,14 +6,18 @@ The wrapper takes the Pallas kernel's operands plus an optional initial
 state and returns the output and the last state, which the model's prefill
 keeps as its SSM cache. On a CPU tensor it runs the plain version
 (``ref.mamba_scan_ref``), which autograd differentiates; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises. ``return_states=True`` also returns the
+state entering every 32-step chunk, ``(B, ceil(S / 32), Di, N)`` f32,
+which the same launch writes; without it the kernel writes none, and its
+outputs are the same bits either way.
 
 Gradients: where grad mode is on and an input requires grad, a CUDA call
 goes through ``_MambaScan`` (a ``torch.autograd.Function``): its forward
-is the same kernel launch, and its backward launches ``mamba_scan_bwd``
-(no TPU counterpart: the JAX model differentiates its jnp scan), counted
-on its own wrapper. Every other CUDA call launches the forward alone, as
-serving always has. Under activation recomputation a block's forward runs
+is the same kernel launch with the chunk states written and saved, and
+its backward launches ``mamba_scan_bwd`` on them (no TPU counterpart: the
+JAX model differentiates its jnp scan), counted on its own wrapper. Every
+other CUDA call launches the forward alone, without the states unless it
+asks for them, as serving always has. Under activation recomputation a block's forward runs
 again in the backward pass, and that launch is counted like any other.
 The decode step is a single recurrence and needs no kernel
 (``models/mamba.py`` ``mamba_decode``).
@@ -38,12 +42,16 @@ __all__ = ["mamba_scan", "mamba_scan_bwd", "STATE_SIZES"]
 
 STATE_SIZES = (4, 8, 16)   # d_state values the kernel is instantiated for
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
+_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
          + (ctypes.c_longlong,) * 8 + (ctypes.c_int, ctypes.c_void_p))
 _BWD_ARGS = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 4
              + (ctypes.c_longlong,) * 10 + (ctypes.c_int, ctypes.c_void_p))
-_CHUNK = 32    # steps per chunk of the backward (kChunk)
-_CH = 32       # channels per block of the backward (kCh)
+_CH = 32       # channels per block (kCh in csrc/scan.cuh)
+
+
+def _states_shape(x: torch.Tensor, a: torch.Tensor) -> Tuple[int, ...]:
+    bsz, s, d_inner = x.shape
+    return (bsz, -(-s // ref.SCAN_CHUNK), d_inner, a.shape[1])
 
 
 def _steps_strides(t: torch.Tensor, name: str, shape) -> Tuple[int, int]:
@@ -60,24 +68,34 @@ def _steps_strides(t: torch.Tensor, name: str, shape) -> Tuple[int, int]:
 
 def mamba_scan(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               h0: Optional[torch.Tensor] = None,
+               return_states: bool = False) -> Tuple[torch.Tensor, ...]:
     """dt (B, S, Di) f32, a (Di, N) f32 (already ``-exp(A_log)``), b/c
     (B, S, N) f32, d_vec (Di,) f32, x (B, S, Di) f32 or bf16, h0 (B, Di, N)
-    f32 or None (zero state) -> (y (B, S, Di) f32, h_last (B, Di, N) f32).
+    f32 or None (zero state) -> (y (B, S, Di) f32, h_last (B, Di, N) f32),
+    and with ``return_states`` also the state entering steps 0, 32, 64,
+    ... (B, ceil(S / 32), Di, N) f32 (not differentiated).
     Differentiable on both devices (see the module docstring)."""
     strides = None
     if counts.counter() is None:
         if x.device.type == "cpu":
-            return ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)
+            out = ref.mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0,
+                                     return_states=return_states)
+            if return_states:
+                return out[0], out[1], out[2].detach()
+            return out
         if x.device.type != "cuda":
             raise ValueError(f"mamba_scan: unsupported device {x.device}")
         strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (dt, a, b_mat, c_mat, d_vec, x, h0)):
-        return _MambaScan.apply(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
-    return _forward(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
+        y, h_last, states = _MambaScan.apply(dt, a, b_mat, c_mat, d_vec, x,
+                                             h0, strides)
+    else:
+        y, h_last, states = _forward(dt, a, b_mat, c_mat, d_vec, x, h0,
+                                     strides, return_states)
+    return (y, h_last, states) if return_states else (y, h_last)
 
 
 def _check(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
@@ -118,80 +136,91 @@ def _check(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
 
 def _forward(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
              c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
-             h0: Optional[torch.Tensor], strides: Tuple[int, ...]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             h0: Optional[torch.Tensor], strides: Tuple[int, ...],
+             with_states: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One launch of the forward kernel on CUDA tensors that ``_check``
-    passed (``strides``: what it returned); under the cost counter one
-    charged call, on either device."""
+    passed (``strides``: what it returned): (y, h_last, states), states
+    None unless ``with_states``; under the cost counter one charged call,
+    on either device."""
+    f32 = dict(dtype=torch.float32, device=x.device)
     cost = counts.counter()
     if cost is not None:
         return cost.charged("mamba_scan", lambda: (
                 x.new_empty(x.shape, dtype=torch.float32),
                 x.new_empty((x.shape[0], x.shape[2], a.shape[1]),
-                            dtype=torch.float32)),
+                            dtype=torch.float32),
+                x.new_empty(_states_shape(x, a), dtype=torch.float32)
+                if with_states else None),
             dt, a, b_mat, c_mat, d_vec, x, h0)
     bsz, s, d_inner = x.shape
     n = a.shape[1]
-    y = torch.empty((bsz, s, d_inner), dtype=torch.float32, device=x.device)
-    h_last = torch.empty((bsz, d_inner, n), dtype=torch.float32,
-                         device=x.device)
+    y = torch.empty((bsz, s, d_inner), **f32)
+    h_last = torch.empty((bsz, d_inner, n), **f32)
+    states = torch.empty(_states_shape(x, a), **f32) if with_states else None
     fn = build.function("mamba_scan", "mamba_scan_launch", _ARGS)
     rc = fn(dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             d_vec.data_ptr(), x.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), bsz, s, d_inner, n,
-            *strides, _X_DTYPES[x.dtype],
+            h_last.data_ptr(), None if states is None else states.data_ptr(),
+            bsz, s, d_inner, n, *strides, _X_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "mamba_scan")
     counts.launched(mamba_scan)
-    return y, h_last
+    return y, h_last, states
 
 
 mamba_scan.launches = 0
 
 
 class _MambaScan(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernel."""
+    """The forward kernel, its chunk states saved for the backward
+    kernel."""
 
     @staticmethod
     def forward(ctx, dt, a, b_mat, c_mat, d_vec, x, h0, strides):
-        y, h_last = _forward(dt, a, b_mat, c_mat, d_vec, x, h0, strides)
-        ctx.save_for_backward(dt, a, b_mat, c_mat, d_vec, x, h0)
+        y, h_last, states = _forward(dt, a, b_mat, c_mat, d_vec, x, h0,
+                                     strides, True)
+        ctx.save_for_backward(dt, a, b_mat, c_mat, d_vec, x, h0, states)
+        ctx.mark_non_differentiable(states)
         ctx.set_materialize_grads(False)
-        return y, h_last
+        return y, h_last, states
 
     @staticmethod
-    def backward(ctx, dy, dh_last):
-        dt, a, b_mat, c_mat, d_vec, x, h0 = ctx.saved_tensors
+    def backward(ctx, dy, dh_last, _):
+        dt, a, b_mat, c_mat, d_vec, x, h0, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         ddt, da, db, dc, dd, dx, dh0 = mamba_scan_bwd(
-            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last)
+            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last, states)
         return ddt, da, db, dc, dd, dx, dh0, None
 
 
 def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                    c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
                    h0: Optional[torch.Tensor], dy: torch.Tensor,
-                   dh_last: Optional[torch.Tensor] = None
+                   dh_last: Optional[torch.Tensor] = None,
+                   states: Optional[torch.Tensor] = None
                    ) -> Tuple[Optional[torch.Tensor], ...]:
     """The gradient of ``mamba_scan(dt, a, b_mat, c_mat, d_vec, x, h0)`` =
     (y, h_last) against dy (B, S, Di) f32 and dh_last (B, Di, N) f32 (None:
     zero): (ddt, da, db, dc, dd, dx, dh0) in the inputs' shapes, dx in x's
-    dtype and the rest f32, dh0 None where h0 is None. On a CPU tensor it
-    runs the plain version (``ref.mamba_scan_bwd_ref``); on a CUDA tensor
-    it launches ``csrc/mamba_scan_bwd.cu`` (two kernels, counted as one
-    launch) or raises. Under the cost counter it is charged as its
-    kernel."""
+    dtype and the rest f32, dh0 None where h0 is None. ``states`` is the
+    forward's third output on the same inputs (``return_states=True``);
+    where it is None a CUDA call first launches the forward for it
+    (counted on ``mamba_scan``). On a CPU tensor it runs the plain version
+    (``ref.mamba_scan_bwd_ref``); on a CUDA tensor it launches
+    ``csrc/mamba_scan_bwd.cu`` (two kernels, counted as one launch) or
+    raises. Under the cost counter it is charged as its kernel."""
     cost = counts.counter()
     if cost is not None:
         return cost.charged("mamba_scan_bwd", lambda: tuple(
                 None if t is None else t.new_empty(t.shape)
                 for t in (dt, a, b_mat, c_mat, d_vec, x, h0)),
-            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last)
+            dt, a, b_mat, c_mat, d_vec, x, h0, dy, dh_last, states=states)
     if x.device.type == "cpu":
         return ref.mamba_scan_bwd_ref(dt, a, b_mat, c_mat, d_vec, x, h0, dy,
-                                      dh_last)
+                                      dh_last, states)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan_bwd: unsupported device {x.device}")
     strides = _check(dt, a, b_mat, c_mat, d_vec, x, h0)
@@ -211,6 +240,15 @@ def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     dy_s = _steps_strides(dy, "dy", (bsz, s, d_inner))
     if dh_last is not None:
         dh_last = dh_last.contiguous()
+    if states is not None and (
+            tuple(states.shape) != _states_shape(x, a)
+            or states.dtype != torch.float32 or states.device != x.device
+            or not states.is_contiguous()):
+        raise ValueError(f"mamba_scan_bwd: states must be contiguous f32 "
+                         f"{_states_shape(x, a)} on x's device")
+    if states is None:
+        states = _forward(dt, a, b_mat, c_mat, d_vec, x, h0, strides,
+                          True)[2]
     f32 = dict(dtype=torch.float32, device=x.device)
     ddt = torch.empty((bsz, s, d_inner), **f32)
     dx = torch.empty((bsz, s, d_inner), dtype=x.dtype, device=x.device)
@@ -219,8 +257,7 @@ def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     dc = torch.empty((bsz, s, n), **f32)
     dd = torch.empty((d_inner,), **f32)
     dh0 = None if h0 is None else torch.empty((bsz, d_inner, n), **f32)
-    # scratch: the state entering each chunk, and the per-block partials
-    ckpt = torch.empty((bsz, -(-s // _CHUNK), d_inner, n), **f32)
+    # scratch: the per-block dB, dC partials and per-row dA, dD ones
     part_bc = torch.empty((2, bsz, -(-d_inner // _CH), s, n), **f32)
     part_ad = torch.empty((bsz, d_inner * (n + 1)), **f32)
     fn = build.function("mamba_scan_bwd", "mamba_scan_bwd_launch", _BWD_ARGS)
@@ -230,7 +267,7 @@ def mamba_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
             None if dh_last is None else dh_last.data_ptr(),
             ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
             dd.data_ptr(), dx.data_ptr(),
-            None if dh0 is None else dh0.data_ptr(), ckpt.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), states.data_ptr(),
             part_bc.data_ptr(), part_ad.data_ptr(), bsz, s, d_inner, n,
             *strides, *dy_s, _X_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)

@@ -25,10 +25,13 @@ upcasts, in the model's layouts:
                              that the backward kernel reads;
 * ``mamba_scan_ref``       — the Mamba-1 selective scan, one step at a
                              time, from an optional initial state; returns
-                             the output and the last state;
+                             the output and the last state, and optionally
+                             the state entering every ``SCAN_CHUNK`` steps,
+                             which the forward kernel hands to the backward;
 * ``mamba_scan_bwd_ref``   — its gradient as an explicit reverse
                              recurrence, the math the backward kernel
-                             runs; no TPU counterpart (the JAX package
+                             runs, optionally from those states; no TPU
+                             counterpart (the JAX package
                              differentiates its jnp ``selective_scan``);
 * ``flash_attention_bwd_ref`` — the gradient of ``flash_attention_ref``
                              (dq, dk, dv) by autograd through it in f32,
@@ -49,10 +52,13 @@ from typing import Optional, Tuple, Union
 import torch
 
 NEG_INF = -1e30
+# steps between the selective scan's states that the forward hands to the
+# backward (kRun in csrc/scan.cuh)
+SCAN_CHUNK = 32
 
 __all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
            "flash_attention_lse_ref", "flash_attention_bwd_ref",
-           "mamba_scan_ref", "mamba_scan_bwd_ref"]
+           "mamba_scan_ref", "mamba_scan_bwd_ref", "SCAN_CHUNK"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,33 +212,39 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 def mamba_scan_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                    c_mat: torch.Tensor, d_vec: torch.Tensor, x: torch.Tensor,
-                   h0: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   h0: Optional[torch.Tensor] = None,
+                   return_states: bool = False) -> Tuple[torch.Tensor, ...]:
     """Sequential selective scan (``repro/kernels/ref.py:60-85``).
 
     dt (B, S, Di) f32, a (Di, N) f32 (already ``-exp(A_log)``), b/c
     (B, S, N) f32, d_vec (Di,), x (B, S, Di) any float dtype, h0 (B, Di, N)
     f32 or None (zeros). Per step: ``h = exp(dt_t a) h + (dt_t x_t) B_t``,
     ``y_t = h C_t``. Returns (y (B, S, Di) f32 with ``D x`` added,
-    h_last (B, Di, N) f32). Float64 inputs run in float64."""
+    h_last (B, Di, N) f32), and with ``return_states`` also the state
+    entering steps 0, 32, 64, ... (B, ceil(S / SCAN_CHUNK), Di, N) f32.
+    Float64 inputs run in float64."""
     bsz, s, d_inner = x.shape
     wt = torch.promote_types(dt.dtype, torch.float32)
     h = (torch.zeros(bsz, d_inner, a.shape[-1], dtype=wt, device=x.device)
          if h0 is None else h0.to(wt))
     xf = x.to(wt)
-    ys = []
+    ys, states = [], []
     for t in range(s):
+        if t % SCAN_CHUNK == 0:
+            states.append(h)
         dt_t = dt[:, t]
         da = torch.exp(dt_t[..., None] * a)
         h = da * h + (dt_t * xf[:, t])[..., None] * b_mat[:, t, None, :]
         ys.append(torch.einsum("bin,bn->bi", h, c_mat[:, t]))
-    return torch.stack(ys, dim=1) + xf * d_vec, h
+    y = torch.stack(ys, dim=1) + xf * d_vec
+    return (y, h, torch.stack(states, dim=1)) if return_states else (y, h)
 
 
 def mamba_scan_bwd_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                        c_mat: torch.Tensor, d_vec: torch.Tensor,
                        x: torch.Tensor, h0: Optional[torch.Tensor],
-                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None,
+                       states: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``mamba_scan_ref(dt, a, b_mat, c_mat, d_vec, x, h0)``
     = (y, h_last) against dy (B, S, Di) and dh_last (B, Di, N) (None:
@@ -247,6 +259,11 @@ def mamba_scan_bwd_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         da    = sum_{b,t} g_t dt_t e_t h_{t-1}  dD = sum_{b,t} dy_t x_t
         dh0   = e_1 g_1
 
+    ``states`` (B, ceil(S / SCAN_CHUNK), Di, N), the forward's states
+    (``mamba_scan_ref(..., return_states=True)``), restarts the walk of
+    the states at each chunk, as the kernel does; from the plain forward's
+    they are the walk's own values, so the result is the same bits.
+
     Returns (ddt (B, S, Di), da (Di, N), db (B, S, N), dc (B, S, N), dd
     (Di,), dx (B, S, Di) in x's dtype, dh0 (B, Di, N) or None where h0 is
     None)."""
@@ -260,6 +277,8 @@ def mamba_scan_bwd_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
          if h0 is None else h0.to(wt))
     hs = [h]                                  # h_{t-1} for t = 0 .. S
     for t in range(s):
+        if states is not None and t % SCAN_CHUNK == 0:
+            hs[t] = h = states[:, t // SCAN_CHUNK].to(wt)
         h = (torch.exp(dt[:, t, :, None] * a) * h
              + (dt[:, t] * xf[:, t])[..., None] * b_mat[:, t, None, :])
         hs.append(h)

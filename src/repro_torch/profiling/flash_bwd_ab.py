@@ -97,10 +97,11 @@ def rounding_scale(q, k, v, o, do, causal: bool, window: int):
     return dq, dk, dv
 
 
-def build_lib(src: Path, *flags: str) -> ctypes.CDLL:
+def build_lib(src: Path, *flags: str, entry: str = "flash_attention_bwd_"
+              "launch", argtypes=OTHER_ARGS) -> ctypes.CDLL:
     """``src`` built with the checkout's nvcc flags and ``flags`` into
-    ``build/flash_bwd_ab/`` and loaded; its launch entry bound as
-    ``.launch`` (``OTHER_ARGS``)."""
+    ``build/flash_bwd_ab/`` and loaded; its C entry point ``entry`` bound
+    as ``.launch`` (``argtypes``)."""
     out_dir = build.BUILD_DIR.parent / "flash_bwd_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"lib{src.stem}.so"
@@ -108,8 +109,8 @@ def build_lib(src: Path, *flags: str) -> ctypes.CDLL:
                     str(build.CSRC), "-o", str(lib), str(src)], check=True,
                    capture_output=True, text=True)
     out = ctypes.CDLL(str(lib))
-    out.launch = out.flash_attention_bwd_launch
-    out.launch.argtypes = list(OTHER_ARGS)
+    out.launch = getattr(out, entry)
+    out.launch.argtypes = list(argtypes)
     out.launch.restype = ctypes.c_int
     return out
 
@@ -132,10 +133,11 @@ def _other_bwd(fn, q, k, v, o, do, lse, causal: bool, window: int):
     return dq, dk, dv
 
 
-def _split(fns, per_window: int = 16) -> dict:
-    """Device ms a call of each kernel the calls launch, from one
-    torch.profiler window of ``per_window`` calls (cycling over ``fns``),
-    keyed by the ``__global__`` function's name."""
+def _split(fns, per_window: int = 16, match: str = "flash_bwd") -> dict:
+    """Device ms a call of each kernel the calls launch whose name holds
+    ``match``, from one torch.profiler window of ``per_window`` calls
+    (cycling over ``fns``), keyed by the ``__global__`` function's
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -146,7 +148,7 @@ def _split(fns, per_window: int = 16) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or "flash_bwd" not in e.key:
+        if e.device_type != DeviceType.CUDA or match not in e.key:
             continue
         t_us = getattr(e, "self_device_time_total", None)
         if t_us is None:

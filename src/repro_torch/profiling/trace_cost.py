@@ -395,16 +395,19 @@ def _scan_flops(x, a) -> float:
 
 def _mamba_scan(out, dt, a, b_mat, c_mat, d_vec, x, h0=None):
     # the jnp scan's product y = einsum("blin,bln->bli", h, C)
-    # (repro/models/mamba.py:113)
+    # (repro/models/mamba.py:113); out holds the chunk states where the
+    # call writes them (the autograd Function's forward)
     return _scan_flops(x, a), _io_bytes(out, dt, a, b_mat, c_mat, d_vec, x,
                                         h0)
 
 
 def _mamba_scan_bwd(out, dt, a, b_mat, c_mat, d_vec, x, h0, dy,
-                    dh_last=None):
-    # that product's two transposes (dC and dh)
+                    dh_last=None, states=None):
+    # that product's two transposes (dC and dh); the forward's chunk
+    # states read once
     return 2 * _scan_flops(x, a), _io_bytes(out, dt, a, b_mat, c_mat,
-                                            d_vec, x, h0, dy, dh_last)
+                                            d_vec, x, h0, dy, dh_last,
+                                            states)
 
 
 KERNEL_COSTS: Dict[str, Callable[..., Tuple[float, int]]] = {

@@ -449,8 +449,11 @@ def test_mamba_scan_forward_and_backward_are_charged():
     assert (ddt.shape, dx.shape) == (dt.shape, x.shape)
     assert cost.kernel_calls == {"mamba_scan": 1, "mamba_scan_bwd": 1}
     assert cost.flops == 2 * b * s * di * n + 4 * b * s * di * n
-    fwd = _nb(dt, a, bm, cm, d, x, y, h)
-    bwd = _nb(dt, a, bm, cm, d, x, dy) + _nb(dt, a, bm, cm, d, x)
+    # the forward writes the state entering each 32-step chunk, (B,
+    # ceil(S / 32), Di, N) f32, and the backward reads it
+    states = 4 * b * -(-s // 32) * di * n
+    fwd = _nb(dt, a, bm, cm, d, x, y, h) + states
+    bwd = _nb(dt, a, bm, cm, d, x, dy) + states + _nb(dt, a, bm, cm, d, x)
     assert cost.bytes == fwd + bwd
     _charged_only(cost, "mamba_scan", "mamba_scan_bwd")
 

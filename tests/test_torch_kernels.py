@@ -8,7 +8,10 @@ against the plain versions on the card by tests/test_torch_kernels_cuda.py.
 
 The flash backward has no Pallas counterpart: its plain version
 (``ref.flash_attention_bwd_ref``) is held against ``jax.grad`` of the JAX
-model's ``sdpa_gqa``.
+model's ``sdpa_gqa``. The selective scan's chunk states (the forward's
+optional output for its backward) are held against the plain recurrence
+stopped at each chunk's start, and against the JAX oracle's last state of
+the same prefix.
 
 Tolerances: indices exactly equal; top-2 gaps within 1e-6 (the same f32
 subtraction of the same two values, ties included); attention within
@@ -29,6 +32,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.top2gap import argmax_gap, top2gap
 
 # the suite runs under pytest-xdist: one intra-op thread per worker keeps
@@ -483,3 +487,50 @@ def test_bwd_rounding_scale_is_the_terms_root_sum_square(causal, window, sq,
         assert x.dtype == torch.float32 and x.shape == w.shape
         np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=0,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's chunk states
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [33, 77, 95, 32])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_plain_returns_the_chunk_states(s, with_h0):
+    """``return_states=True`` on the CPU: y and h_last the same bits as
+    without it, and the state entering every 32-step chunk (tail chunks of
+    1, 13 and 31 steps, and one whole chunk) the same bits as the plain
+    recurrence run to that chunk's start (h0, or zeros, for the first), and
+    within 1e-5 of the JAX oracle's last state of the same prefix."""
+    b, di, n = 2, 40, 8
+    rng = np.random.default_rng(s)
+    ins = [np.log1p(np.exp(rng.standard_normal((b, s, di)) * 0.5 - 3.0)),
+           -np.exp(rng.uniform(0.0, 1.1, (di, n))),
+           rng.standard_normal((b, s, n)), rng.standard_normal((b, s, n)),
+           rng.standard_normal(di), rng.standard_normal((b, s, di))]
+    ins = [a.astype(np.float32) for a in ins]
+    h0 = rng.standard_normal((b, di, n)).astype(np.float32) \
+        if with_h0 else None
+    t = [torch.from_numpy(a) for a in ins]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    before = mamba_scan.launches
+    y, h_last, states = mamba_scan(*t, th0, return_states=True)
+    assert mamba_scan.launches == before          # the CPU path counts nothing
+    y0, h0_last = mamba_scan(*t, th0)
+    assert torch.equal(y, y0) and torch.equal(h_last, h0_last)
+    chunks = -(-s // tref.SCAN_CHUNK)
+    assert states.shape == (b, chunks, di, n)
+    assert states.dtype == torch.float32 and not states.requires_grad
+    for c in range(chunks):
+        t0 = c * tref.SCAN_CHUNK
+        if t0 == 0:
+            want = torch.zeros(b, di, n) if th0 is None else th0
+        else:
+            want = tref.mamba_scan_ref(*(a[:, :t0] if a.dim() == 3 else a
+                                         for a in t), th0)[1]
+            jw = jref.mamba_scan_ref(
+                *(jnp.asarray(a[:, :t0] if a.ndim == 3 else a)
+                  for a in ins),
+                None if h0 is None else jnp.asarray(h0))[1]
+            np.testing.assert_allclose(states[:, c].numpy(),
+                                       np.asarray(jw), atol=1e-5, rtol=0)
+        assert torch.equal(states[:, c], want), c

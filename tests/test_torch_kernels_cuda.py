@@ -673,6 +673,33 @@ def test_mamba_scan_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
     torch.testing.assert_close(h, rh, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("b,s,di", [(1, 200, 512), (2, 33, 70), (1, 1, 64),
+                                    (1, 31, 31), (2, 64, 8192)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_writes_the_chunk_states(cuda, n, b, s, di,
+                                                   with_h0):
+    """The forward with ``return_states``: one launch, y and h_last the
+    same bits as the launch without it, and the state entering every
+    32-step chunk within 2e-4 of the plain version's (its first chunk's
+    h0, or zeros, exactly)."""
+    f = lambda seed, shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        _rand(seed, shape, scale)).to(cuda)
+    dt = torch.nn.functional.softplus(f(1, (b, s, di), 0.5) - 3.0)
+    a = -torch.exp(f(2, (di, n), 0.5))
+    ins = (dt, a, f(3, (b, s, n)), f(4, (b, s, n)), f(5, (di,)),
+           f(6, (b, s, di)).bfloat16(), f(7, (b, di, n)) if with_h0 else None)
+    before = mamba_scan.launches
+    y, h, states = mamba_scan(*ins, return_states=True)
+    assert mamba_scan.launches == before + 1
+    y0, h0 = mamba_scan(*ins)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    want = tref.mamba_scan_ref(*ins, return_states=True)[2]
+    assert states.shape == want.shape and states.dtype == torch.float32
+    assert torch.equal(states[:, 0], want[:, 0])
+    torch.testing.assert_close(states, want, atol=2e-4, rtol=0)
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_kernel_unaligned_operands(cuda, x_dtype):
     """Operands whose rows are not 16-byte aligned take the element-wise
@@ -1367,6 +1394,29 @@ def test_mamba_scan_bwd_kernel_matches_plain(cuda, n, b, s, di, x_dtype,
     _held_scan_bwd(got, ins, x_dtype)
 
 
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("b,s,di", [(1, 1, 64), (2, 31, 33), (1, 32, 96),
+                                    (2, 33, 70), (1, 200, 512),
+                                    (2, 77, 1000), (4, 512, 256)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_bwd_kernel_from_the_forward_states(cuda, n, b, s, di,
+                                                       x_dtype, with_h0):
+    """The backward fed the forward kernel's chunk states, at every case
+    of the test above: one launch of each, within the same limits, and the
+    same bits as the backward that launches the forward for them."""
+    ins = _scan_bwd_case(cuda, b, s, di, n, x_dtype, with_h0, with_h0)
+    f0, b0 = mamba_scan.launches, mamba_scan_bwd.launches
+    states = mamba_scan(*ins[:7], return_states=True)[2]
+    got = mamba_scan_bwd(*ins, states=states)
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan_bwd.launches) == (f0 + 1, b0 + 1)
+    _held_scan_bwd(got, ins, x_dtype)
+    for g, w in zip(got, mamba_scan_bwd(*ins)):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert mamba_scan.launches == f0 + 2
+
+
 def test_mamba_scan_bwd_kernel_is_deterministic(cuda):
     """Two calls on the same inputs give the same bits (no atomics: the
     partial sums over channels, batch and steps add in a fixed order)."""
@@ -1417,6 +1467,16 @@ def test_mamba_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):                   # x f32 or bf16
         mamba_scan_bwd(*ins[:5], ins[5].half(), *ins[6:])
     assert mamba_scan_bwd.launches == before
+    # the forward's chunk states: shape (B, ceil(S / 32), Di, N), f32,
+    # contiguous, on x's device
+    states = mamba_scan(*ins[:7], return_states=True)[2]
+    f0 = mamba_scan.launches
+    for bad in (states[:, :, :16], torch.zeros(1, 2, 32, 16, device=cuda),
+                states.double(), states.bfloat16(), states.cpu(),
+                torch.zeros(1, 1, 16, 32, device=cuda).transpose(2, 3)):
+        with pytest.raises(ValueError):
+            mamba_scan_bwd(*ins, states=bad)
+    assert (mamba_scan.launches, mamba_scan_bwd.launches) == (f0, before)
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",

@@ -150,6 +150,35 @@ def test_scan_bwd_ref_matches_jax_vjp(n, s, random_h0, x_dtype):
             + F32_REL * float(np.abs(w).max()) + 1e-30)
 
 
+@pytest.mark.parametrize("random_h0", [False, True])
+@pytest.mark.parametrize("s", [33, 77, 95])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_scan_bwd_ref_from_the_forward_states(n, s, random_h0):
+    """The recurrence fed the plain forward's chunk states (tail chunks of
+    1, 13 and 31 steps), as the backward kernel is fed the forward
+    kernel's: the same bits as without them, through ``mamba_scan_bwd``
+    on CPU tensors too, and so within 1e-5 of each gradient's largest
+    entry of jax.vjp of the JAX selective_scan."""
+    b, di = 2, 24
+    dt, a_log, bm, cm, d, x, h0, dy, dh = _inputs(
+        b, s, di, n, seed=300 * n + s, random_h0=random_h0)
+    t = lambda a: None if a is None else torch.tensor(a)  # noqa: E731
+    a = -torch.exp(t(a_log))
+    th0 = t(h0) if random_h0 else None
+    fwd = (t(dt), a, t(bm), t(cm), t(d), t(x))
+    states = mamba_scan(*fwd, th0, return_states=True)[2]
+    assert states.shape == (b, -(-s // tref.SCAN_CHUNK), di, n)
+    plain = tref.mamba_scan_bwd_ref(*fwd, th0, t(dy), t(dh))
+    fed = tref.mamba_scan_bwd_ref(*fwd, th0, t(dy), t(dh), states)
+    wrapped = mamba_scan_bwd(*fwd, th0, t(dy), t(dh), states=states)
+    for p, f, w in zip(plain, fed, wrapped):
+        assert (p is None and f is None and w is None) or (
+            torch.equal(p, f) and torch.equal(p, w))
+    ddt, da, db, dc, dd, dx, dh0 = fed
+    want = _jax_vjp(dt, a_log, bm, cm, d, x, h0, dy, dh, "float32")
+    _held([ddt, da * a, db, dc, dd, dx, dh0], want, f"N={n} S={s} states")
+
+
 @pytest.mark.parametrize("n", [4, 8, 16])
 def test_scan_bwd_ref_matches_float64_autograd(n):
     """The recurrence against autograd through the forward plain version,
