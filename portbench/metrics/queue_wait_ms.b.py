@@ -1,0 +1,20 @@
+"""Engine loop: the mean wait of the window's escalated requests in stage
+b's queue, from being queued (the escalation) to the entry of the prefill
+call that admitted them (``TokenResult.stage_times``), each less what of it
+lies in the steps a profiler slice touched."""
+
+STAGE = "b"
+
+
+def read(rec):
+    si = rec.names.index(STAGE)
+    traced = [(s, e) for s, e, _ in rec.steps(traced=True)]
+    waits = []
+    for _, _, res in rec.requests():
+        times = getattr(res, "stage_times", {}).get(si)
+        if times is None:
+            continue
+        queued, joined = times
+        waits.append(joined - queued - sum(
+            max(0.0, min(e, joined) - max(s, queued)) for s, e in traced))
+    return float(sum(waits) / len(waits) * 1e3) if waits else None

@@ -46,13 +46,24 @@ JAX engine compiles one executable per length. For the graphs the
 device-resident state (pool, tokens, positions, active mask, certainty
 fold) is allocated once and only ever written in place. On the CPU the
 same entry points run eagerly and ``compile_counts`` counts the same keys.
-The telemetry hooks of the JAX engine are not ported yet.
+
+What the engines record, in place of the JAX engine's telemetry hooks (which
+record logical-step events): every public ``SlotEngine`` call appends a
+``CallSpan`` to ``SlotEngineStats.spans``, a bounded log of when the call
+prepared, launched, waited on its read-backs and did its bookkeeping; every
+``TokenResult`` carries wall stamps beside its logical steps (when it was
+queued and joined at each stage it visited, its first and last token), on
+``time.perf_counter()``, which no decision reads. While a torch profiler
+runs, each phase of a call is also a ``record_function`` annotation named
+``repro_torch.<stage>.<kind>.<phase>``, on the device trace's clock.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Sequence, Set, Tuple, Union
+from typing import (Deque, Dict, List, NamedTuple, Optional, Sequence, Set,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -68,7 +79,11 @@ from repro_torch.models import model as model_lib
 from repro_torch.serving.graphs import GraphCache
 
 __all__ = ["SlotEngine", "TokenEngine", "TokenRequest", "TokenResult",
-           "SlotEngineStats", "greedy_generate"]
+           "SlotEngineStats", "CallSpan", "CALL_LOG_LEN", "greedy_generate"]
+
+# entries of a SlotEngineStats.spans log: set-up and a serving window of
+# minutes at a call every millisecond or more
+CALL_LOG_LEN = 1 << 16
 
 
 def greedy_generate(params, cfg, prompt: np.ndarray, max_new: int
@@ -108,18 +123,64 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
     return out
 
 
+class CallSpan(NamedTuple):
+    """One public ``SlotEngine`` call on ``time.perf_counter()``: prep and
+    launch from ``t_enter`` to ``t_launched`` (checks, the graph key, the
+    host inputs, then ``GraphCache.run``: the static-input copies and the
+    replay; on the eager paths the launches), wait to ``t_synced`` (the
+    blocking read-backs) and post to ``t_exit`` (the bookkeeping after
+    them). An eager batch-1 prefill of several prompts is one span, its
+    phases summed over the prompts."""
+    kind: str            # "prefill" | "decode"
+    t_enter: float
+    t_launched: float
+    t_synced: float
+    t_exit: float
+    rows: int            # prompts prefilled, or active rows decoded
+    k: int               # decode steps (0 for a prefill)
+
+
 @dataclass
 class SlotEngineStats:
-    """Hot-loop instrumentation: prefill and decode calls, decode steps
-    executed, and the analytic host-transfer byte counts of the step
-    outputs/inputs."""
+    """Hot-loop instrumentation: prefill and decode calls, prompts and
+    decode steps, the prefill shapes, and ``spans``, the ``CallSpan`` of
+    each of the latest ``CALL_LOG_LEN`` public calls."""
     prefill_calls: int = 0          # prefill invocations
     prefill_prompts: int = 0        # prompts prefilled across those calls
     decode_calls: int = 0           # decode invocations
     decode_steps: int = 0           # decode steps executed (sum of K)
-    bytes_to_host: int = 0          # step outputs shipped device -> host
-    bytes_to_device: int = 0        # step operands shipped host -> device
     prefill_shapes: Set[Tuple[int, int]] = field(default_factory=set)
+    spans: Deque[CallSpan] = field(
+        default_factory=lambda: deque(maxlen=CALL_LOG_LEN))
+
+
+class _Phases:
+    """While a torch profiler runs, the phases of one public ``SlotEngine``
+    call as ``record_function`` annotations named
+    ``repro_torch.<stage>.<kind>.<phase>`` (prep, launch, wait, post), one
+    open at a time; nothing otherwise."""
+    __slots__ = ("_prefix", "_rf")
+
+    def __init__(self, engine: SlotEngine, kind: str):
+        self._prefix = (f"repro_torch.{engine.name}.{kind}."
+                        if torch.autograd._profiler_enabled() else None)
+        self._rf = None
+
+    def __enter__(self) -> _Phases:
+        self.to("prep")
+        return self
+
+    def to(self, phase: str) -> None:
+        if self._prefix is None:
+            return
+        self.__exit__()
+        self._rf = torch.profiler.record_function(self._prefix + phase)
+        self._rf.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
 
 
 class SlotEngine:
@@ -222,25 +283,34 @@ class SlotEngine:
         """Prefill one prompt and scatter its cache into a free slot
         (reference path). Returns (slot index, first token, its top-2 gap);
         the argmax and gap run on the device."""
-        if not self.free:
-            raise RuntimeError(f"{self.name}: no free decode slot")
-        prompt = self._check_prompt(prompt)
-        logits, cache1 = model_lib.prefill(
-            self.params, self.cfg, {"tokens": prompt[None, :]},
-            cache_len=self.max_len)
-        tok_d, gap_d = argmax_gap(logits)
-        slot = self.free.pop()
-        self._scatter(torch.tensor([slot], device=self.device), cache1, 1)
-        self.pos[slot] = prompt.size
-        self.active[slot] = True
-        self._active_dirty = True
-        self._prefill_lengths.add(int(prompt.size))
-        self.stats.prefill_calls += 1
-        self.stats.prefill_prompts += 1
-        self.stats.prefill_shapes.add((1, int(prompt.size)))
-        self.stats.bytes_to_device += prompt.size * 4
-        self.stats.bytes_to_host += 8              # (tok, gap)
-        return slot, int(tok_d[0]), float(gap_d[0])
+        t_enter = time.perf_counter()
+        with _Phases(self, "prefill") as ph:
+            if not self.free:
+                raise RuntimeError(f"{self.name}: no free decode slot")
+            prompt = self._check_prompt(prompt)
+            ph.to("launch")
+            logits, cache1 = model_lib.prefill(
+                self.params, self.cfg, {"tokens": prompt[None, :]},
+                cache_len=self.max_len)
+            tok_d, gap_d = argmax_gap(logits)
+            slot = self.free.pop()
+            self._scatter(torch.tensor([slot], device=self.device), cache1,
+                          1)
+            t_launched = time.perf_counter()
+            ph.to("wait")
+            tok, gap = int(tok_d[0]), float(gap_d[0])
+            t_synced = time.perf_counter()
+            ph.to("post")
+            self.pos[slot] = prompt.size
+            self.active[slot] = True
+            self._active_dirty = True
+            self._prefill_lengths.add(int(prompt.size))
+            self.stats.prefill_calls += 1
+            self.stats.prefill_prompts += 1
+            self.stats.prefill_shapes.add((1, int(prompt.size)))
+        self.stats.spans.append(CallSpan("prefill", t_enter, t_launched,
+                                         t_synced, time.perf_counter(), 1, 0))
+        return slot, tok, gap
 
     def _len_bucket(self, n: int) -> int:
         for b in self.len_buckets:
@@ -281,6 +351,7 @@ class SlotEngine:
         JAX engine.
 
         Returns (slots, first tokens (n,), first gaps (n,))."""
+        t_enter = time.perf_counter()
         prompts = [self._check_prompt(p) for p in prompts]
         n = len(prompts)
         if n == 0:
@@ -298,35 +369,52 @@ class SlotEngine:
             gaps = np.asarray([j[2] for j in joined], np.float32)
             self._join_rows(slots, np.asarray([p.size for p in prompts]),
                             toks, gaps)
+            # the prompts' own spans fold into this call's, their phases
+            # summed; the time between them is prep, after them post
+            t_exit, spans, inner = time.perf_counter(), self.stats.spans, []
+            while spans and spans[-1].t_enter >= t_enter:
+                inner.append(spans.pop())
+            wait = sum(c.t_synced - c.t_launched for c in inner)
+            post = t_exit - inner[0].t_exit + sum(
+                c.t_exit - c.t_synced for c in inner)
+            spans.append(CallSpan("prefill", t_enter, t_exit - post - wait,
+                                  t_exit - post, t_exit, n, 0))
             return slots, toks, gaps
-        bb = self._batch_bucket(n)
-        arr = np.zeros((bb, lb), np.int32)
-        lens = np.ones((bb,), np.int32)
-        for i, p in enumerate(prompts):
-            arr[i, :p.size] = p
-            lens[i] = p.size
-        slots = [self.free.pop() for _ in range(n)]
-        # prefill row -> pool lane; pad rows repeat the first real row into
-        # its own lane, so the scatter writes one value wherever it writes
-        src = np.zeros(bb, np.int64)
-        src[:n] = np.arange(n)
-        dst = np.full(bb, slots[0], np.int64)
-        dst[:n] = slots
-        tok_d, gap_d = self.graphs.run(
-            ("bucketed_prefill", bb, lb, self._pool_dtypes()),
-            self._bucketed_body, arr, lens, src, dst)
-        toks = tok_d[:n].cpu().numpy()
-        gaps = gap_d[:n].cpu().numpy()
-        plens = lens[:n]
-        for slot, plen in zip(slots, plens):
-            self.pos[slot] = plen
-            self.active[slot] = True
-        self._join_rows(slots, plens, toks, gaps)
-        self.stats.prefill_calls += 1
-        self.stats.prefill_prompts += n
-        self.stats.prefill_shapes.add((bb, lb))
-        self.stats.bytes_to_device += arr.nbytes + lens.nbytes
-        self.stats.bytes_to_host += n * 8          # (tok, gap) per joiner
+        with _Phases(self, "prefill") as ph:
+            bb = self._batch_bucket(n)
+            arr = np.zeros((bb, lb), np.int32)
+            lens = np.ones((bb,), np.int32)
+            for i, p in enumerate(prompts):
+                arr[i, :p.size] = p
+                lens[i] = p.size
+            slots = [self.free.pop() for _ in range(n)]
+            # prefill row -> pool lane; pad rows repeat the first real row
+            # into its own lane, so the scatter writes one value wherever it
+            # writes
+            src = np.zeros(bb, np.int64)
+            src[:n] = np.arange(n)
+            dst = np.full(bb, slots[0], np.int64)
+            dst[:n] = slots
+            key = ("bucketed_prefill", bb, lb, self._pool_dtypes())
+            ph.to("launch")
+            tok_d, gap_d = self.graphs.run(key, self._bucketed_body, arr,
+                                           lens, src, dst)
+            t_launched = time.perf_counter()
+            ph.to("wait")
+            toks = tok_d[:n].cpu().numpy()
+            gaps = gap_d[:n].cpu().numpy()
+            t_synced = time.perf_counter()
+            ph.to("post")
+            plens = lens[:n]
+            for slot, plen in zip(slots, plens):
+                self.pos[slot] = plen
+                self.active[slot] = True
+            self._join_rows(slots, plens, toks, gaps)
+            self.stats.prefill_calls += 1
+            self.stats.prefill_prompts += n
+            self.stats.prefill_shapes.add((bb, lb))
+        self.stats.spans.append(CallSpan("prefill", t_enter, t_launched,
+                                         t_synced, time.perf_counter(), n, 0))
         return slots, toks, gaps
 
     def _bucketed_body(self, tokens, true_lens, src, dst):
@@ -358,26 +446,36 @@ class SlotEngine:
         Idle slots ride along at position 0 with a zero token. Returns
         {slot: (greedy token, top-2 gap)}, reduced on the device, and
         advances each active slot's depth."""
-        if set(tokens_by_slot) != set(np.flatnonzero(self.active)):
-            raise ValueError("decode needs exactly the active slots")
-        slots = np.fromiter(tokens_by_slot.keys(), np.int64,
-                            len(tokens_by_slot))
-        vals = np.fromiter(tokens_by_slot.values(), np.int64, len(slots))
-        if (self.pos[slots] >= self.max_len).any():
-            full = int(slots[np.argmax(self.pos[slots] >= self.max_len)])
-            raise ValueError(f"slot {full} is full ({self.max_len} tokens)")
-        toks = np.zeros((self.n_slots, 1), np.int32)
-        toks[slots, 0] = vals
-        tok_d, gap_d = self.graphs.run(
-            ("reference_decode", self._widen_pool()), self._reference_body,
-            toks, self.pos.copy())
-        toks_h, gaps_h = tok_d.cpu().numpy(), gap_d.cpu().numpy()
-        self.pos[slots] += 1
-        self.stats.decode_calls += 1
-        self.stats.decode_steps += 1
-        self.stats.bytes_to_device += self.n_slots * 8   # tokens + pos
-        self.stats.bytes_to_host += self.n_slots * 8     # tok + gap
-        return {int(s): (int(toks_h[s]), float(gaps_h[s])) for s in slots}
+        t_enter = time.perf_counter()
+        with _Phases(self, "decode") as ph:
+            if set(tokens_by_slot) != set(np.flatnonzero(self.active)):
+                raise ValueError("decode needs exactly the active slots")
+            slots = np.fromiter(tokens_by_slot.keys(), np.int64,
+                                len(tokens_by_slot))
+            vals = np.fromiter(tokens_by_slot.values(), np.int64, len(slots))
+            if (self.pos[slots] >= self.max_len).any():
+                full = int(slots[np.argmax(self.pos[slots] >= self.max_len)])
+                raise ValueError(
+                    f"slot {full} is full ({self.max_len} tokens)")
+            toks = np.zeros((self.n_slots, 1), np.int32)
+            toks[slots, 0] = vals
+            key = ("reference_decode", self._widen_pool())
+            ph.to("launch")
+            tok_d, gap_d = self.graphs.run(key, self._reference_body, toks,
+                                           self.pos.copy())
+            t_launched = time.perf_counter()
+            ph.to("wait")
+            toks_h, gaps_h = tok_d.cpu().numpy(), gap_d.cpu().numpy()
+            t_synced = time.perf_counter()
+            ph.to("post")
+            self.pos[slots] += 1
+            self.stats.decode_calls += 1
+            self.stats.decode_steps += 1
+            out = {int(s): (int(toks_h[s]), float(gaps_h[s])) for s in slots}
+        self.stats.spans.append(CallSpan("decode", t_enter, t_launched,
+                                         t_synced, time.perf_counter(),
+                                         len(slots), 1))
+        return out
 
     def _reference_body(self, tokens, positions):
         """One decode step and its argmax/top-2-gap reduction: the
@@ -407,25 +505,36 @@ class SlotEngine:
         trace (k, B) f32); input tokens, positions and the certainty fold
         stay on the device between calls. Advances every active slot's
         depth by ``k``."""
-        if self.n_active == 0:
-            raise RuntimeError(f"{self.name}: no active slots to decode")
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        if int(self.pos[self.active].max()) + k > self.max_len:
-            raise ValueError(
-                f"{self.name}: a {k}-step scan overruns a "
-                f"{self.max_len}-token slot")
-        if self._active_dirty:
-            self.dev_active.copy_(torch.from_numpy(self.active))
-            self._active_dirty = False
-        key = ("fused_decode", mode, float(beta), k, self._widen_pool())
-        tt, gt, ct = self.graphs.run(
-            key, lambda: self._fused_body(k, mode, float(beta)))
-        self.pos[self.active] += k
-        self.stats.decode_calls += 1
-        self.stats.decode_steps += k
-        self.stats.bytes_to_host += k * self.n_slots * 12  # tok+gap+cert
-        return tt.cpu().numpy(), gt.cpu().numpy(), ct.cpu().numpy()
+        t_enter = time.perf_counter()
+        with _Phases(self, "decode") as ph:
+            if self.n_active == 0:
+                raise RuntimeError(f"{self.name}: no active slots to decode")
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            if int(self.pos[self.active].max()) + k > self.max_len:
+                raise ValueError(
+                    f"{self.name}: a {k}-step scan overruns a "
+                    f"{self.max_len}-token slot")
+            if self._active_dirty:
+                self.dev_active.copy_(torch.from_numpy(self.active))
+                self._active_dirty = False
+            key = ("fused_decode", mode, float(beta), k, self._widen_pool())
+            ph.to("launch")
+            tt, gt, ct = self.graphs.run(
+                key, lambda: self._fused_body(k, mode, float(beta)))
+            t_launched = time.perf_counter()
+            ph.to("wait")
+            out = tt.cpu().numpy(), gt.cpu().numpy(), ct.cpu().numpy()
+            t_synced = time.perf_counter()
+            ph.to("post")
+            rows = self.n_active
+            self.pos[self.active] += k
+            self.stats.decode_calls += 1
+            self.stats.decode_steps += k
+        self.stats.spans.append(CallSpan("decode", t_enter, t_launched,
+                                         t_synced, time.perf_counter(),
+                                         rows, k))
+        return out
 
 
 @dataclass
@@ -447,6 +556,16 @@ class TokenResult:
     # per-visited-stage gap stream (the tokens the request REALLY consumed
     # there — speculative tokens never enter); keyed by stage index
     stage_gaps: Dict[int, List[float]] = field(default_factory=dict)
+    # wall stamps (time.perf_counter(); no decision reads them): per visited
+    # stage (queued, joined), queued at ``serve``'s entry or the escalation,
+    # joined at the entry of the prefill call that admitted it (its
+    # ``CallSpan.t_enter``); a token's time is the exit of the stage call
+    # that produced it, the first re-stamped at escalation like
+    # ``first_token_step``
+    stage_times: Dict[int, Tuple[float, float]] = field(
+        default_factory=dict, compare=False)
+    first_token_t: Optional[float] = field(default=None, compare=False)
+    done_t: Optional[float] = field(default=None, compare=False)
 
 
 @dataclass
@@ -517,14 +636,16 @@ class TokenEngine:
     def serve(self, requests: Sequence[TokenRequest]
               ) -> Dict[int, TokenResult]:
         """Run all requests through the cascade; returns {rid: result}."""
-        waiting: List[Deque[Tuple[TokenRequest, TokenResult]]] = [
+        queued = time.perf_counter()
+        # (request, result, when it was queued)
+        waiting: List[Deque[Tuple[TokenRequest, TokenResult, float]]] = [
             deque() for _ in self.stages]
         act: List[List[_Active]] = [[] for _ in self.stages]
         results: Dict[int, TokenResult] = {}
         for r in requests:
             res = TokenResult(rid=r.rid)
             results[r.rid] = res
-            waiting[0].append((r, res))
+            waiting[0].append((r, res, queued))
 
         step = 0
         while any(waiting) or any(act):
@@ -547,25 +668,29 @@ class TokenEngine:
         k = self.batchers[si].admit(eng.n_active, len(waiting[si]))
         if not k:
             return
-        pairs = [waiting[si].popleft() for _ in range(k)]
+        entries = [waiting[si].popleft() for _ in range(k)]
         if self.mode == "reference":
             joined = []
-            for req, res in pairs:
+            for req, res, queued in entries:
                 slot, tok, gap = eng.prefill_into_slot(req.prompt)
-                joined.append((req, res, slot, tok, gap))
+                joined.append((req, res, queued, slot, tok, gap,
+                               eng.stats.spans[-1]))
         else:
             slots, toks, gaps = eng.prefill_batch(
-                [req.prompt for req, _ in pairs])
-            joined = [(req, res, slot, int(tok), float(gap))
-                      for (req, res), slot, tok, gap
-                      in zip(pairs, slots, toks, gaps)]
-        for req, res, slot, tok, gap in joined:
+                [req.prompt for req, _, _ in entries])
+            span = eng.stats.spans[-1]
+            joined = [(req, res, queued, slot, int(tok), float(gap), span)
+                      for (req, res, queued), slot, tok, gap
+                      in zip(entries, slots, toks, gaps)]
+        for req, res, queued, slot, tok, gap, span in joined:
             cert = StreamingCertainty(mode=self.stream_mode, beta=self.beta)
             cert.update(gap)
             res.tokens.append(tok)
             res.gaps.append(gap)
+            res.stage_times[si] = (queued, span.t_enter)
             if res.first_token_step < 0:
                 res.first_token_step = step
+                res.first_token_t = span.t_exit
             act[si].append(_Active(req, slot, tok, cert, res))
 
     # ----------------------------------------------------- decode phase
@@ -582,10 +707,14 @@ class TokenEngine:
             a.res.gaps.clear()
             # TTFT re-stamps at the resolving stage: the stream restarts
             a.res.first_token_step = -1
-            waiting[hop.next_stage].append((a.req, a.res))
+            a.res.first_token_t = None
+            waiting[hop.next_stage].append(
+                (a.req, a.res, time.perf_counter()))
         else:
             a.res.resolver = si
             a.res.done_step = step
+            # the decode call that made its last token
+            a.res.done_t = eng.stats.spans[-1].t_exit
 
     def _step_reference(self, si: int, eng: SlotEngine, waiting, act,
                         step: int) -> None:
@@ -659,7 +788,7 @@ class TokenEngine:
     def stats(self) -> Dict[str, object]:
         """Aggregated hot-loop instrumentation across all stages."""
         agg = {"prefill_calls": 0, "prefill_prompts": 0, "decode_calls": 0,
-               "decode_steps": 0, "bytes_to_host": 0, "bytes_to_device": 0}
+               "decode_steps": 0}
         for eng in self.stages:
             for key in agg:
                 agg[key] += getattr(eng.stats, key)
