@@ -66,7 +66,14 @@ launch counts include graph replays.
              entry in the plain reverse recurrence (a bf16 dx also within
              its rounding), two calls bit-equal, the decay a step early
              and h0's term dropped rejected; timed with the forward
-             kernel at the training shape.
+             kernel at the training shape. Then the SSM decode step's
+             two kernels (no TPU counterpart: the jnp chain), conv and
+             recurrence, at falcon-mamba-7b's width (Di 8192, N 16, bf16)
+             at B 32 and B 1, and checked also at N 4 and 8 and in f32
+             over an f32 and a narrow bf16 pool: the conv and SSM states
+             the plain chain's bits, xc and out within two bf16 units in
+             the last place (``_step_err``); timed each and as a pair
+             against the plain chain.
 4. serve   — the main path: a two-stage cascade of full-width qwen2-0.5b
              models (random bf16 weights from seeds 0 and 1) served by the
              fused ``TokenEngine`` (8 KV slots of 512 tokens, spec_k 4):
@@ -101,7 +108,8 @@ launch counts include graph replays.
              weights from seeds 0 and 1) through the same engine and
              traffic. Every prefill is an exact-length batch-1 call whose
              scan runs in the mamba_scan kernel (64 launches per prefill),
-             top2gap reduces every step at V 65,024, and no attention
+             every decode step runs the SSM step's two kernels once a
+             layer, top2gap reduces every step at V 65,024, and no attention
              kernel runs; the launch counters are checked as above, served
              tokens against a teacher-forced ``forward``, and a profiler
              window, ``graphs_vs_eager`` (fused decode only: the prefills
@@ -160,7 +168,8 @@ launch counts include graph replays.
              the one configuration whose forward runs all four kernels (14
              Mamba-1 layers, 2 attention layers at a GQA group of 4, MoE
              in every other layer). A 200-token prefill and JAMBA_STEPS
-             decode steps, launches counted from ``block_pattern``; the
+             decode steps, launches counted from ``block_pattern`` (the
+             SSM step's two kernels once a Mamba layer a step); the
              prefill held against ``forward`` as in serve_moe (a), the
              steps against a teacher-forced forward printed only; peak
              memory under JAMBA_PEAK_LIMIT.
@@ -380,6 +389,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import (mamba_scan,  # noqa: E402
                                             mamba_scan_bwd)
+from repro_torch.kernels.mamba_step import (  # noqa: E402
+    mamba_conv_step, mamba_ssm_step)
 from repro_torch.kernels.top2gap import top2gap  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -407,6 +418,12 @@ FP32_FLOP_PER_S = 67e12
 # instruction throughput), 132 SMs at the H100 SXM's 1,980 MHz boost clock
 SFU_PER_S = 132 * 16 * 1.98e9
 SCAN_TOL = 2e-4           # f32 scan kernel vs the f32 plain version
+# the decode-step kernels' xc and out against the plain chain: a sum over
+# K or N in another order moves one rounding by an ulp, which the next
+# product and rounding can carry to two; rarely (the share below)
+MAMBA_STEP_ULPS = 2
+MAMBA_STEP_F32_TOL = 1e-5
+MAMBA_STEP_DIFFER = 1e-3
 SSM_BF16_MARGIN = 0.5     # bf16 teacher-forced margin on the SSM path
 F32_GAP_TOL = 1e-3        # f32 decode vs forward gaps (summation order)
 ATTN_TOL = 2e-2           # bf16 kernel vs the f32 plain version
@@ -1386,6 +1403,149 @@ def kernel_mamba(dev) -> dict:
                 at_s64=timed[64])
 
 
+def _step_inputs(dev, g, b, di, n, dtype, pool=None):
+    """One Mamba-1 decode step's kernel inputs at falcon-mamba-7b's
+    scales (d_conv 4, dt_rank 256): x_new and z as the halves of one
+    in_proj output, B and C as column views of one x_proj output, the conv
+    pool in ``pool`` (default: ``dtype``) and an f32 state."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    xz = r(b, 1, 2 * di).to(dtype)
+    dbc = r(b, 1, 256 + 2 * n).to(dtype)
+    conv = (xz[..., :di], r(b, 3, di).to(pool or dtype),
+            r(4, di, scale=0.5).to(dtype), r(di, scale=0.1).to(dtype))
+    ssm = (r(b, 1, di).to(dtype), torch.rand(di, generator=g, device=dev)
+           * 2.0 - 4.0, torch.rand(di, n, generator=g, device=dev) * 1.1,
+           dbc[..., 256:256 + n], dbc[..., 256 + n:], r(di),
+           r(b, 1, di).to(dtype), xz[..., di:], r(b, di, n))
+    return conv, ssm
+
+
+def _step_err(got, want) -> float:
+    """The largest |got - want| over its limit: in bf16 MAMBA_STEP_ULPS
+    units in the last place of ``want`` (at least 2^-17: the f32 sums'
+    own error near a cancellation), in f32 MAMBA_STEP_F32_TOL absolute
+    plus relative."""
+    w, d = want.float(), (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        return float((d / (MAMBA_STEP_ULPS * ulp.clamp_min(2.0 ** -17)))
+                     .max())
+    return float((d / (MAMBA_STEP_F32_TOL * (1.0 + w.abs()))).max())
+
+
+def _step_check(conv, ssm, what: str) -> dict:
+    """Both decode-step kernels against their plain versions on clones of
+    the same card inputs: the conv state and the SSM state bit-equal (the
+    same roundings op for op), xc and out within their limits
+    (``_step_err``: the sums over K and N follow another order than
+    cuBLAS's, then pass two or three roundings), at most
+    MAMBA_STEP_DIFFER of their elements not bit-equal in bf16."""
+    pool, rpool = conv[1], conv[1].clone()
+    before = (mamba_conv_step.launches, mamba_ssm_step.launches)
+    xc = mamba_conv_step(*conv)
+    rxc = ref.mamba_conv_step_ref(conv[0], rpool, conv[2], conv[3])
+    h, rh = ssm[8], ssm[8].clone()
+    out = mamba_ssm_step(*ssm[:6], xc, ssm[7], h)
+    rout = ref.mamba_ssm_step_ref(*ssm[:6], xc, ssm[7], rh)
+    torch.cuda.synchronize()
+    check((mamba_conv_step.launches, mamba_ssm_step.launches)
+          == (before[0] + 1, before[1] + 1), f"{what}: one launch each")
+    row = {"xc_over_tol": _step_err(xc, rxc),
+           "out_over_tol": _step_err(out, rout),
+           "xc_differ": float((xc != rxc).float().mean()),
+           "out_differ": float((out != rout).float().mean()),
+           "conv_state_equal": torch.equal(pool, rpool),
+           "ssm_state_equal": torch.equal(h, rh),
+           "ssm_state_max_abs_err": float((h - rh).abs().max())}
+    check(row["conv_state_equal"] and row["ssm_state_equal"],
+          f"{what}: conv and SSM states bit-equal to the plain version's "
+          f"({row})")
+    # in f32 every sum's last bit may differ; in bf16 few survive rounding
+    check(max(row["xc_over_tol"], row["out_over_tol"]) <= 1.0
+          and (out.dtype != torch.bfloat16 or max(
+              row["xc_differ"], row["out_differ"]) <= MAMBA_STEP_DIFFER),
+          f"{what}: xc and out within their limits, in bf16 at most "
+          f"{MAMBA_STEP_DIFFER} of them not bit-equal ({row})")
+    return row
+
+
+def kernel_mamba_step(dev) -> list:
+    """The Mamba-1 decode step's two kernels (no TPU counterpart: the JAX
+    model's jnp chain, which ``ref`` keeps as their plain versions) at
+    falcon-mamba-7b's width (Di 8192, N 16, bf16): B 32 (the benchmark's
+    slots) is each row's shape, B 1 (jamba's forward) its ``at_b1``; held
+    against the plain versions there and at N 4 and 8, f32 activations
+    over an f32 and a narrow bf16 pool (``_step_check``). Timed with the
+    plain chain (one row's ``plain_ms``) and the pair (``at_pair_*``:
+    both kernels against the whole plain step, x_proj and dt_proj left
+    out of both). Returns the two rows."""
+    g = _gen(17)
+    di = 8192
+    checks = {}
+    for b, n, dtype, pool in ((32, 16, torch.bfloat16, None),
+                              (1, 16, torch.bfloat16, None),
+                              (3, 4, torch.bfloat16, None),
+                              (5, 8, torch.bfloat16, None),
+                              (4, 16, torch.float32, None),
+                              (4, 8, torch.float32, torch.bfloat16)):
+        what = (f"mamba_step B={b} N={n} {str(dtype)[6:]}"
+                + (f" pool {str(pool)[6:]}" if pool else ""))
+        checks[what] = _step_check(*_step_inputs(dev, g, b, di, n, dtype,
+                                                 pool), what)
+    rows = {"mamba_ssm_step": {}, "mamba_conv_step": {}}
+    for b in (32, 1):
+        n, es = 16, 2
+        ssm_bytes = (2 * b * di * n * 4 + di * n * 4 + 3 * di * 4
+                     + 4 * b * di * es + 2 * b * n * es)
+        conv_bytes = 2 * b * di * 3 * es + 2 * b * di * es + 5 * di * es
+        sets = [_step_inputs(dev, g, b, di, n, torch.bfloat16)
+                for _ in range(copies(ssm_bytes + conv_bytes))]
+        xcs = [mamba_conv_step(*c) for c, _ in sets]
+        conv_ms = device_ms([lambda c=c: mamba_conv_step(*c)
+                             for c, _ in sets])
+        ssm_ms = device_ms([lambda s=s, x=x: mamba_ssm_step(*s[:6], x, s[7],
+                                                            s[8])
+                            for (_, s), x in zip(sets, xcs)])
+        pair_ms = device_ms([lambda c=c, s=s: mamba_ssm_step(
+            *s[:6], mamba_conv_step(*c), s[7], s[8]) for c, s in sets])
+        conv_pms = device_ms([lambda c=c: ref.mamba_conv_step_ref(*c)
+                              for c, _ in sets])
+        ssm_pms = device_ms([lambda s=s, x=x: ref.mamba_ssm_step_ref(
+            *s[:6], x, s[7], s[8]) for (_, s), x in zip(sets, xcs)])
+        pair_pms = device_ms([lambda c=c, s=s: ref.mamba_ssm_step_ref(
+            *s[:6], ref.mamba_conv_step_ref(*c), s[7], s[8])
+            for c, s in sets])
+        # two exponentials a state (A and the decay) and softplus's two
+        # a channel; the state's read and write bind
+        sb = _scan_bound(ssm_bytes, b * di * (2 * n + 2), 8)
+        cb = bound(conv_bytes, 2.0 * b * 4 * di, FP32_FLOP_PER_S)
+        pb = bound(ssm_bytes + conv_bytes, 0.0, FP32_FLOP_PER_S)
+        shape = f"B={b} Di={di} N={n} bf16, f32 state, d_conv 4"
+        for name, ms, pms, (bms, by), nb in (
+                ("mamba_ssm_step", ssm_ms, ssm_pms, sb, ssm_bytes),
+                ("mamba_conv_step", conv_ms, conv_pms, cb, conv_bytes)):
+            rows[name][b] = dict(shape=shape, ms=ms, plain_ms=pms,
+                                 library_ms=None, library=None, bound_ms=bms,
+                                 bound_by=by, bound_bytes=nb,
+                                 hbm_share=bms / ms)
+        rows["mamba_ssm_step"][b]["pair"] = dict(
+            shape=shape + ", conv and SSM kernels", ms=pair_ms,
+            plain_ms=pair_pms, bound_ms=pb[0], bound_by=pb[1])
+    out = []
+    for name, by_b in rows.items():
+        row = dict(name=name, checks=checks, max_abs_err=max(
+                       c["ssm_state_max_abs_err"] for c in checks.values()),
+                   err_over_tol=max(max(c["xc_over_tol"], c["out_over_tol"])
+                                    for c in checks.values()),
+                   **by_b[32], at_b1=by_b[1])
+        if name == "mamba_ssm_step":
+            row["at_pair_b32"] = row.pop("pair")
+            row["at_pair_b1"] = row["at_b1"].pop("pair")
+        out.append(row)
+    return out
+
+
 def _bwd_plain(q, k, v, o, do, causal, window):
     """The plain backward in f32 with D_i = dO_i . o_i read from the ``o``
     given, as the kernel reads it."""
@@ -1834,10 +1994,11 @@ def kernel_mamba_bwd(dev) -> dict:
 def phase_kernels(dev) -> dict:
     out = {}
     for fn in (kernel_top2gap, kernel_decode, kernel_flash, kernel_mamba,
-               kernel_flash_bwd, kernel_mamba_bwd):
-        row = fn(dev)
-        emit({"phase": "kernel", **row})
-        out[row["name"]] = row
+               kernel_flash_bwd, kernel_mamba_bwd, kernel_mamba_step):
+        rows = fn(dev)
+        for row in rows if isinstance(rows, list) else [rows]:
+            emit({"phase": "kernel", **row})
+            out[row["name"]] = row
     return out
 
 
@@ -2097,7 +2258,9 @@ def _check_attention_launches(summary: dict) -> None:
     for name, n in expect.items():
         check(launches[name] == n and n > 0,
               f"{name} launches {launches[name]} == {n} > 0")
-    check(launches["mamba_scan"] == 0, "no scan on the attention path")
+    check(launches["mamba_scan"] == 0 and launches["mamba_conv_step"] == 0
+          and launches["mamba_ssm_step"] == 0,
+          "no scan or SSM step on the attention path")
 
 
 def phase_serve(dev) -> dict:
@@ -2127,6 +2290,13 @@ def phase_serve_ssm(dev) -> dict:
     n = layers * summary["prefill_calls"]
     check(launches["mamba_scan"] == n and n > 0,
           f"mamba_scan launches {launches['mamba_scan']} == {n} > 0")
+    # every decode step runs each step kernel once a layer, graph replays
+    # included
+    steps = sum(s["layers"] * s["decode_steps"]
+                for s in summary["by_stage"].values())
+    for name in ("mamba_conv_step", "mamba_ssm_step"):
+        check(launches[name] == steps and steps > 0,
+              f"{name} launches {launches[name]} == {steps} > 0")
     check(launches["decode_attention"] == 0
           and launches["flash_attention"] == 0,
           "no attention kernel on the SSM path")
@@ -2498,7 +2668,8 @@ def phase_forward_jamba(dev) -> dict:
     torch.cuda.synchronize()
     launches = K.launch_counts()
     expect = {"mamba_scan": n_ssm, "flash_attention": n_attn,
-              "decode_attention": n_attn * n, "top2gap": 2}
+              "decode_attention": n_attn * n, "top2gap": 2,
+              "mamba_conv_step": n_ssm * n, "mamba_ssm_step": n_ssm * n}
     for name, want in expect.items():
         check(launches[name] == want and want > 0,
               f"forward_jamba {name} launches {launches[name]} == {want}")
@@ -4720,22 +4891,24 @@ def _dryrun_child(device: str) -> dict:
 
 def _dryrun_calls(arch: str, shape: str) -> dict:
     """The kernels a cell's step charges: a decode step one decode
-    attention an attention layer and one top2gap; a train step (remat)
+    attention an attention layer, one conv and one SSM step an SSM layer
+    and one top2gap; a train step (remat)
     the flash forward twice and its backward once an attention layer; a
     prefill one flash forward an attention layer, one scan an SSM layer
     and one top2gap."""
     cfg = get_config(arch)
     attn_layers = _attention_layers(cfg)
+    ssm_layers = _ssm_layers(cfg)
     if shape == "train_4k":
         return {"flash_attention": 2 * attn_layers,
                 "flash_attention_bwd": attn_layers}
     if shape == "prefill_32k":
-        ssm_layers = sum(1 for i in range(cfg.num_layers)
-                         if not cfg.layer_is_attention(i))
         return {**({"flash_attention": attn_layers} if attn_layers else {}),
                 **({"mamba_scan": ssm_layers} if ssm_layers else {}),
                 "top2gap": 1}
     return {**({"decode_attention": attn_layers} if attn_layers else {}),
+            **({"mamba_conv_step": ssm_layers, "mamba_ssm_step": ssm_layers}
+               if ssm_layers else {}),
             "top2gap": 1}
 
 
@@ -4876,13 +5049,23 @@ def main() -> int:
                                 "flash_attention_bwd.cu", None),
         "mamba_scan_bwd": ("src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
                            None),
+        "mamba_conv_step": ("src/repro_torch/kernels/csrc/mamba_step.cu",
+                            None),
+        "mamba_ssm_step": ("src/repro_torch/kernels/csrc/mamba_step.cu",
+                           None),
     }
     notes = {"flash_attention_bwd": "no TPU kernel: stands in for XLA's "
                                     "derivative of the jnp sdpa / sdpa_gqa "
                                     "(src/repro/models/attention.py:76-89)",
              "mamba_scan_bwd": "no TPU kernel: stands in for XLA's "
                                "derivative of the jnp selective_scan "
-                               "(src/repro/models/mamba.py:75)"}
+                               "(src/repro/models/mamba.py:75)",
+             "mamba_conv_step": "no TPU kernel: stands in for the jnp "
+                                "decode step's conv (src/repro/models/"
+                                "mamba.py mamba_decode)",
+             "mamba_ssm_step": "no TPU kernel: stands in for the jnp "
+                               "decode step's recurrence (src/repro/models/"
+                               "mamba.py mamba_decode)"}
     rows = []
     for name, (src, replaces) in sources.items():
         t = timed[name]

@@ -10,6 +10,10 @@ mamba_scan       — the Mamba-1 selective scan of an SSM prefill or
                    training step
 mamba_scan_bwd   — its backward (ddt, dA, dB, dC, dD, dx, dh0), behind
                    the forward's autograd Function; no TPU counterpart
+mamba_conv_step  — the Mamba-1 decode step's conv, its state shifted in
+                   place; no TPU counterpart
+mamba_ssm_step   — the decode step's SSM recurrence, its state written in
+                   place, and the gate; no TPU counterpart
 
 Each wrapper runs its plain version (``ref``) for a CPU tensor and its
 kernel for a CUDA tensor, and counts the kernel's launches in its
@@ -25,6 +29,7 @@ from repro_torch.kernels import counts as _counts
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import mamba_step as _step
 from repro_torch.kernels import top2gap as _top2gap
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
@@ -37,6 +42,8 @@ WRAPPERS = {
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "mamba_scan": _mamba.mamba_scan,
     "mamba_scan_bwd": _mamba.mamba_scan_bwd,
+    "mamba_conv_step": _step.mamba_conv_step,
+    "mamba_ssm_step": _step.mamba_ssm_step,
 }
 
 

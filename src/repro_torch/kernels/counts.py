@@ -91,9 +91,9 @@ def forward_only(name: str, *tensors) -> None:
     """Raise where a kernel without a backward would be launched on
     inputs that autograd is tracking: its output would carry no
     ``grad_fn`` and the gradient would be lost without a word. Only the
-    serving kernels ``decode_attention`` and ``top2gap`` call it; no
-    training path reaches them (``flash_attention`` and ``mamba_scan``
-    have backward kernels)."""
+    serving kernels ``decode_attention``, ``top2gap`` and the SSM decode
+    step's two call it; no training path reaches them
+    (``flash_attention`` and ``mamba_scan`` have backward kernels)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -19,8 +19,9 @@ JAX model differentiates its jnp scan), counted on its own wrapper. Every
 other CUDA call launches the forward alone, without the states unless it
 asks for them, as serving always has. Under activation recomputation a block's forward runs
 again in the backward pass, and that launch is counted like any other.
-The decode step is a single recurrence and needs no kernel
-(``models/mamba.py`` ``mamba_decode``).
+The decode step, a single recurrence, has kernels of its own
+(``kernels/mamba_step.py``, called by ``models/mamba.py``
+``mamba_decode``).
 
 Under the dry-run's cost counter (``counts.counter()``) nothing is
 launched on either device: a call goes through the same autograd

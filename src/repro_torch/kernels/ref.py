@@ -38,7 +38,13 @@ upcasts, in the model's layouts:
                              optionally with D = dO . o read from the o
                              given, as the kernel reads it; it has no TPU
                              counterpart (the JAX package differentiates
-                             its jnp attention).
+                             its jnp attention);
+* ``mamba_conv_step_ref``, ``mamba_ssm_step_ref`` — the Mamba-1 mixer's
+                             decode step after its projections, the op
+                             chain of the JAX ``mamba_decode`` in torch
+                             ops, in its dtypes (``repro/models/mamba.py``
+                             ``mamba_decode``; no TPU kernel), the caches
+                             updated in place.
 
 The CPU tests hold them against the JAX package; ``chip_smoke.py`` holds
 each kernel against them on the card. The wrappers call them only for
@@ -50,6 +56,7 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 # steps between the selective scan's states that the forward hands to the
@@ -58,7 +65,8 @@ SCAN_CHUNK = 32
 
 __all__ = ["top2gap_ref", "decode_attention_ref", "flash_attention_ref",
            "flash_attention_lse_ref", "flash_attention_bwd_ref",
-           "mamba_scan_ref", "mamba_scan_bwd_ref", "SCAN_CHUNK"]
+           "mamba_scan_ref", "mamba_scan_bwd_ref", "mamba_conv_step_ref",
+           "mamba_ssm_step_ref", "SCAN_CHUNK"]
 
 
 def top2gap_ref(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -300,3 +308,40 @@ def mamba_scan_bwd_ref(dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     dd = (dyf * xf).sum((0, 1))
     return (ddt, da, db, dc, dd, dx.to(x.dtype),
             None if h0 is None else carry)
+
+
+def mamba_conv_step_ref(x_new: torch.Tensor, conv: torch.Tensor,
+                        w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x_new (B, 1, Di), conv (B, K-1, Di) UPDATED IN PLACE (shifted by one
+    tap, x_new last), w (K, Di), bias (Di,) -> silu(window . w + bias)
+    (B, 1, Di). The JAX concatenate promotes, so a bf16 pool under f32
+    activations gives f32, and the pool keeps its dtype."""
+    ct = torch.promote_types(conv.dtype, x_new.dtype)
+    conv_in = torch.cat([conv.to(ct), x_new.to(ct)], dim=1)
+    xc = torch.einsum("bki,ki->bi", conv_in, w.to(conv_in.dtype))
+    xc = F.silu(xc + bias.to(xc.dtype))[:, None]
+    conv.copy_(conv_in[:, 1:])
+    return xc
+
+
+def mamba_ssm_step_ref(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                       a_log: torch.Tensor, b_mat: torch.Tensor,
+                       c_mat: torch.Tensor, d_vec: torch.Tensor,
+                       x: torch.Tensor, z: torch.Tensor, h: torch.Tensor
+                       ) -> torch.Tensor:
+    """dt_raw, x, z (B, 1, Di), b_mat, c_mat (B, 1, N) in the activation
+    dtype; dt_bias, d_vec (Di,), a_log (Di, N) f32; h (B, Di, N) f32
+    UPDATED IN PLACE to exp(dt a) h + (dt x) B, with dt = softplus(dt_raw
+    + dt_bias) and a = -exp(a_log), all in f32 -> (h . C + D x) rounded to
+    z's dtype, times silu(z) (B, 1, Di)."""
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    a = -torch.exp(a_log)                               # (Di,N)
+    da = torch.exp(dt[:, 0, :, None] * a)               # (B,Di,N)
+    bu = (dt[:, 0] * x[:, 0].float())[..., None] \
+        * b_mat.float()[:, 0, None, :]
+    h_new = da * h + bu
+    y = torch.einsum("bin,bn->bi", h_new, c_mat.float()[:, 0])
+    y = y + x[:, 0].float() * d_vec
+    y = y[:, None].to(z.dtype) * F.silu(z)
+    h.copy_(h_new)
+    return y

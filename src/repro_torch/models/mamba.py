@@ -5,7 +5,11 @@ kernel (``kernels/mamba_scan.py``), which carries the (B, d_inner,
 d_state) state through the whole prompt and returns the last state for the
 decode cache; the JAX model runs a chunked associative scan in jnp instead.
 Decode is the O(1) single-step recurrence against the cached
-(conv_state, ssm_state), written into the caller's cache IN PLACE.
+(conv_state, ssm_state), written into the caller's cache IN PLACE: the
+projections are matrix products, and the rest of the step runs in two
+kernels (``kernels/mamba_step.py``), ``mamba_conv_step`` before
+``x_proj`` and ``mamba_ssm_step`` after ``dt_proj``, which read and write
+each layer's f32 state once.
 
 Parameters keep the JAX layout and dtypes: ``A_log``, ``D`` and
 ``dt_proj_b`` are float32 under bfloat16 weights, and the SSM state is
@@ -32,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import compat
 from repro_torch.distributed.context import get_context
 from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_step import mamba_conv_step, mamba_ssm_step
 from repro_torch.models.common import (Params, model_blocks, tp_in, tp_out,
                                        tp_whole)
 
@@ -62,21 +67,29 @@ def make_mamba_params(cfg: ModelConfig, normal: Callable, uniform: Callable,
     }
 
 
-def _ssm_inputs(p: Params, cfg: ModelConfig, xc: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project conv output xc (..., d_inner) -> (dt, B, C) for the SSM.
-    dt (..., d_inner) f32; B, C (..., d_state) f32."""
+def _projections(p: Params, cfg: ModelConfig, xc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project conv output xc (..., d_inner) -> (dt_proj's output before
+    its bias and softplus (..., d_inner), B, C (..., d_state)), all in
+    xc's dtype; B and C are column views of ``x_proj``'s output."""
     s = cfg.ssm
     dt_rank = s.resolved_dt_rank(cfg.d_model)
     n = model_blocks(s.expand * cfg.d_model)
     # the channels' partial sums, then used by every process's channels
     dbc = tp_in(tp_out(xc @ p["x_proj"], n), n)
     dt_low = dbc[..., :dt_rank]
-    b_mat = dbc[..., dt_rank:dt_rank + s.d_state].float()
-    c_mat = dbc[..., dt_rank + s.d_state:].float()
-    dt = dt_low @ p["dt_proj_w"].to(dt_low.dtype)
+    b_mat = dbc[..., dt_rank:dt_rank + s.d_state]
+    c_mat = dbc[..., dt_rank + s.d_state:]
+    return dt_low @ p["dt_proj_w"].to(dt_low.dtype), b_mat, c_mat
+
+
+def _ssm_inputs(p: Params, cfg: ModelConfig, xc: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project conv output xc (..., d_inner) -> (dt, B, C) for the SSM.
+    dt (..., d_inner) f32; B, C (..., d_state) f32."""
+    dt, b_mat, c_mat = _projections(p, cfg, xc)
     dt = F.softplus(dt.float() + p["dt_proj_b"])
-    return dt, b_mat, c_mat
+    return dt, b_mat.float(), c_mat.float()
 
 
 def selective_scan(dt: torch.Tensor, a_log: torch.Tensor,
@@ -166,24 +179,13 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step. x (B, 1, D); cache {conv (B,K-1,Di), ssm (B,Di,N)}
-    is UPDATED IN PLACE (views into the caller's pool) and returned."""
+    is UPDATED IN PLACE (views into the caller's pool) and returned. Every
+    row is computed; the conv and the SSM step are one kernel each."""
     xc_new, z = _in_proj(p, cfg, x)                     # (B,1,Di)
-    # the JAX concatenate promotes (a bf16 pool under f32 weights gives f32)
-    ct = torch.promote_types(cache["conv"].dtype, xc_new.dtype)
-    conv_in = torch.cat([cache["conv"].to(ct), xc_new.to(ct)], dim=1)
-    xc = torch.einsum("bki,ki->bi", conv_in,
-                      p["conv_w"].to(conv_in.dtype))
-    xc = F.silu(xc + p["conv_b"].to(xc.dtype))[:, None]   # (B,1,Di)
-    dt, b_mat, c_mat = _ssm_inputs(p, cfg, xc)
-    a = -torch.exp(p["A_log"])                          # (Di,N)
-    da = torch.exp(dt[:, 0, :, None] * a)               # (B,Di,N)
-    bu = (dt[:, 0] * xc[:, 0].float())[..., None] * b_mat[:, 0, None, :]
-    h = da * cache["ssm"] + bu
-    y = torch.einsum("bin,bn->bi", h, c_mat[:, 0])
-    y = y + xc[:, 0].float() * p["D"]
-    y = y[:, None].to(x.dtype) * F.silu(z)
+    xc = mamba_conv_step(xc_new, cache["conv"], p["conv_w"], p["conv_b"])
+    dt, b_mat, c_mat = _projections(p, cfg, xc)
+    y = mamba_ssm_step(dt, p["dt_proj_b"], p["A_log"], b_mat, c_mat, p["D"],
+                       xc, z, cache["ssm"])
     out = tp_out(y @ p["out_proj"],
                  model_blocks(cfg.ssm.expand * cfg.d_model))
-    cache["conv"].copy_(conv_in[:, 1:])
-    cache["ssm"].copy_(h)
     return out, cache

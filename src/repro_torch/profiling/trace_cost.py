@@ -410,6 +410,24 @@ def _mamba_scan_bwd(out, dt, a, b_mat, c_mat, d_vec, x, h0, dy,
                                             states)
 
 
+def _mamba_conv_step(out, x_new, conv, w, bias):
+    # the jnp decode's einsum("bki,ki->bi") over the window
+    # (repro/models/mamba.py mamba_decode); the conv state is read and
+    # written back shifted
+    bsz, _, d_inner = x_new.shape
+    return (2.0 * bsz * w.shape[0] * d_inner,
+            _io_bytes(out, x_new, conv, w, bias) + _nbytes(conv))
+
+
+def _mamba_ssm_step(out, dt_raw, dt_bias, a_log, b_mat, c_mat, d_vec, x, z,
+                    h):
+    # the jnp decode's einsum("bin,bn->bi", h, C); the state is read once
+    # and written once
+    return (2.0 * h.numel(),
+            _io_bytes(out, dt_raw, dt_bias, a_log, b_mat, c_mat, d_vec, x,
+                      z, h) + _nbytes(h))
+
+
 KERNEL_COSTS: Dict[str, Callable[..., Tuple[float, int]]] = {
     "top2gap": _top2gap,
     "decode_attention": _decode_attention,
@@ -417,4 +435,6 @@ KERNEL_COSTS: Dict[str, Callable[..., Tuple[float, int]]] = {
     "flash_attention_bwd": _flash_attention_bwd,
     "mamba_scan": _mamba_scan,
     "mamba_scan_bwd": _mamba_scan_bwd,
+    "mamba_conv_step": _mamba_conv_step,
+    "mamba_ssm_step": _mamba_ssm_step,
 }

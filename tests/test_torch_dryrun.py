@@ -458,6 +458,51 @@ def test_mamba_scan_forward_and_backward_are_charged():
     _charged_only(cost, "mamba_scan", "mamba_scan_bwd")
 
 
+def test_mamba_decode_charges_its_two_step_kernels():
+    """The SSM mixer's decode step on fakes: each step kernel charged once
+    (FLOPs: the jnp decode's two einsums; bytes: each input read once, the
+    outputs written once and the conv and SSM states written back), beside
+    the four projections' matrix products and nothing of the recurrence's
+    plain ops; nothing launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.mamba_step import (mamba_conv_step,
+                                                mamba_ssm_step)
+    from repro_torch.models import mamba as TMB
+    cfg = get_smoke_config("falcon-mamba-7b")
+    b, d, di, n, k, r = 3, cfg.d_model, 256, cfg.ssm.d_state, 4, 8
+    g = torch.Generator().manual_seed(0)
+    p = TMB.make_mamba_params(
+        cfg, lambda shape: torch.randn(shape, generator=g),
+        lambda shape, lo, hi: torch.rand(shape, generator=g),
+        lambda shape, v, dtype: torch.full(shape, v, dtype=dtype),
+        torch.float32)
+    names = sorted(p)
+    mode, fakes = _fake(*(p[k_] for k_ in names), torch.randn(b, 1, d),
+                        torch.randn(b, k - 1, di), torch.randn(b, di, n))
+    fp = dict(zip(names, fakes))
+    x, conv, ssm = fakes[-3:]
+    launches = (mamba_conv_step.launches, mamba_ssm_step.launches)
+    with mode, TraceCost() as cost:
+        out, cache = TMB.mamba_decode(fp, cfg, x, {"conv": conv,
+                                                   "ssm": ssm})
+    assert (out.shape, out.dtype) == ((b, 1, d), torch.float32)
+    assert cache["conv"] is conv and cache["ssm"] is ssm
+    assert cost.kernel_calls == {"mamba_conv_step": 1, "mamba_ssm_step": 1}
+    assert (mamba_conv_step.launches, mamba_ssm_step.launches) == launches
+    matmuls = 2 * b * (d * 2 * di + di * (r + 2 * n) + r * di + di * d)
+    assert cost.flops == matmuls + 2 * b * k * di + 2 * b * di * n
+    rows = {name: v for v, name in cost.top_contributors(100, "bytes")}
+    vec = b * di * 4                          # one (B, 1, Di) f32 tensor
+    assert rows["x1 kernel:mamba_conv_step"] == (
+        _nb(fp["conv_w"], fp["conv_b"]) + 2 * vec + 2 * _nb(conv))
+    assert rows["x1 kernel:mamba_ssm_step"] == (
+        _nb(fp["dt_proj_b"], fp["A_log"], fp["D"]) + 4 * vec
+        + 2 * b * n * 4 + 2 * _nb(ssm))
+    assert {name.split(" ", 1)[1] for name in rows} <= {
+        "kernel:mamba_conv_step", "kernel:mamba_ssm_step", "aten.mm",
+        "aten._unsafe_view"}
+
+
 def test_a_charged_call_on_real_tensors_raises():
     with TraceCost():
         with pytest.raises(RuntimeError, match="fake tensors only"):
@@ -669,9 +714,12 @@ def test_production_cells_charge_their_kernels(cells):
     olmo = get_config("olmo-1b")
     assert cells[("olmo-1b", "decode_32k", "single")]["kernel_calls"] == {
         "decode_attention": olmo.num_layers, "top2gap": 1}
-    # the SSM's decode step is a recurrence, no kernel
+    # the SSM's decode step: its conv and its recurrence, a kernel each
+    mamba = get_config("falcon-mamba-7b")
     assert cells[("falcon-mamba-7b", "long_500k", "single")][
-        "kernel_calls"] == {"top2gap": 1}
+        "kernel_calls"] == {"mamba_conv_step": mamba.num_layers,
+                            "mamba_ssm_step": mamba.num_layers,
+                            "top2gap": 1}
     llama = get_config("llama4-maverick-400b-a17b")
     # remat: the forward twice, the backward once a layer
     assert cells[("llama4-maverick-400b-a17b", "train_4k", "single")][

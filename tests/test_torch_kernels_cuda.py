@@ -19,6 +19,8 @@ classifier's scores within 1e-4 of its CPU run in f32, and the certainties
 ``EngineBackend.execute`` reduces on the card bit-equal to the CPU's for
 the same scores.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+from repro_torch.kernels.mamba_step import mamba_conv_step, mamba_ssm_step
 from repro_torch.kernels.top2gap import argmax_gap, top2gap
 from repro_torch.models import model as TM
 from repro_torch.serving import engine as TE
@@ -760,6 +763,135 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         mamba_scan(*t, torch.zeros(b, di, 8, device=cuda))   # h0 shape
     assert mamba_scan.launches == before
+
+
+def _step_case(dev, b, di, n, dtype, pool=None, seed=0):
+    """One decode step's kernel inputs: x_new and z the halves of one
+    in_proj output, B and C column views of one x_proj output (dt_rank 8
+    columns before them), the conv pool (B, 3, Di) in ``pool`` (default:
+    ``dtype``), an f32 state; the SSM step's x is left to the conv's
+    output (None here)."""
+    def f(i, shape, scale=1.0):
+        return torch.from_numpy(_rand(seed + i, shape, scale)).to(dev)
+    xz = f(1, (b, 1, 2 * di)).to(dtype)
+    dbc = f(2, (b, 1, 8 + 2 * n)).to(dtype)
+    conv = (xz[..., :di], f(3, (b, 3, di)).to(pool or dtype),
+            f(4, (4, di), 0.5).to(dtype), f(5, (di,), 0.1).to(dtype))
+    ssm = (f(6, (b, 1, di)).to(dtype), f(7, (di,), 0.5) - 3.0,
+           f(8, (di, n), 0.5).abs(), dbc[..., 8:8 + n], dbc[..., 8 + n:],
+           f(9, (di,)), None, xz[..., di:], f(10, (b, di, n)))
+    return conv, ssm
+
+
+def _step_close(got, want):
+    """bf16: within 2 units in the last place of ``want`` (at least 2^-17)
+    and at most 0.1 % of the elements not bit-equal; f32: within 1e-5
+    absolute plus relative. The kernels sum over K and N in another order
+    than the plain chain's cuBLAS products, which moves an f32 sum's last
+    bits; in bf16 that flips a rounding by one unit, which the next
+    product's rounding can carry to two."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    w, d = want.float(), (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        assert bool((d <= 2 * ulp.clamp_min(2.0 ** -17)).all()), float(
+            (d / ulp).max())
+        assert float((got != want).float().mean()) <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,di,n,dtype,pool", [
+    (32, 8192, 16, torch.bfloat16, None),     # falcon-mamba-7b's decode
+    (1, 8192, 16, torch.bfloat16, None),      # jamba's forward
+    (3, 200, 4, torch.bfloat16, None), (2, 72, 8, torch.bfloat16, None),
+    (5, 8192, 8, torch.bfloat16, None), (1, 33, 4, torch.bfloat16, None),
+    (4, 256, 16, torch.float32, None), (2, 100, 4, torch.float32, None),
+    (4, 100, 8, torch.float32, torch.bfloat16),   # the narrow pool
+    (3, 8192, 16, torch.float32, torch.bfloat16)])
+def test_mamba_step_kernels_match_plain(cuda, b, di, n, dtype, pool):
+    """Each decode-step kernel against its plain version on clones of the
+    same card inputs, at every N, Di not a multiple of a block's channels,
+    bf16 and f32 activations and a narrow bf16 pool under f32, with B and
+    C read through x_proj's strides: one launch each, the conv state and
+    the SSM state the plain chain's bits (the same roundings, op for op),
+    xc and out within ``_step_close``."""
+    conv, ssm = _step_case(cuda, b, di, n, dtype, pool)
+    rpool, h = conv[1].clone(), ssm[8]
+    rh = h.clone()
+    before = (mamba_conv_step.launches, mamba_ssm_step.launches)
+    xc = mamba_conv_step(*conv)
+    rxc = tref.mamba_conv_step_ref(conv[0], rpool, conv[2], conv[3])
+    out = mamba_ssm_step(*ssm[:6], xc, ssm[7], h)
+    rout = tref.mamba_ssm_step_ref(*ssm[:6], xc, ssm[7], rh)
+    assert (mamba_conv_step.launches, mamba_ssm_step.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert conv[1].dtype == (pool or dtype) and torch.equal(conv[1], rpool)
+    assert torch.equal(h, rh)
+    _step_close(xc, rxc)
+    _step_close(out, rout)
+
+
+def test_mamba_step_kernels_reject_what_they_do_not_take(cuda):
+    b, di, n = 2, 64, 16
+    conv, ssm = _step_case(cuda, b, di, n, torch.bfloat16)
+    x = conv[0].clone()
+    before = (mamba_conv_step.launches, mamba_ssm_step.launches)
+    with pytest.raises(ValueError):                  # d_conv 5
+        mamba_conv_step(conv[0], torch.zeros(b, 4, di, device=cuda,
+                                             dtype=torch.bfloat16),
+                        torch.zeros(5, di, device=cuda,
+                                    dtype=torch.bfloat16), conv[3])
+    with pytest.raises(TypeError):                   # f32 pool under bf16
+        mamba_conv_step(conv[0], conv[1].float(), conv[2], conv[3])
+    with pytest.raises(TypeError):                   # f16 activations
+        mamba_conv_step(conv[0].half(), conv[1].half(), conv[2].half(),
+                        conv[3].half())
+    with pytest.raises(ValueError):                  # channels strided
+        mamba_conv_step(conv[0], torch.zeros(b, 3, 2 * di, device=cuda,
+                                             dtype=torch.bfloat16)[..., ::2],
+                        conv[2], conv[3])
+    with pytest.raises(ValueError):                  # d_state 32
+        mamba_ssm_step(*ssm[:2], torch.zeros(di, 32, device=cuda),
+                       *ssm[3:6], x, ssm[7], torch.zeros(b, di, 32,
+                                                         device=cuda))
+    with pytest.raises(TypeError):                   # a bf16 state
+        mamba_ssm_step(*ssm[:6], x, ssm[7], ssm[8].bfloat16())
+    with pytest.raises(TypeError):                   # dt_raw in f32
+        mamba_ssm_step(ssm[0].float(), *ssm[1:6], x, ssm[7], ssm[8])
+    with pytest.raises(ValueError):                  # the state's rows
+        mamba_ssm_step(*ssm[:6], x, ssm[7],          # not contiguous
+                       ssm[8].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):                  # state off 16 bytes
+        mamba_ssm_step(*ssm[:6], x, ssm[7], torch.zeros(
+            b * di * n + 1, device=cuda)[1:].view(b, di, n))
+    with pytest.raises(RuntimeError):                # no backward
+        mamba_ssm_step(*ssm[:6], x.float().requires_grad_().bfloat16(),
+                       ssm[7], ssm[8])
+    assert (mamba_conv_step.launches, mamba_ssm_step.launches) == before
+
+
+def test_mamba_step_kernels_count_k_times_layers_per_fused_call(cuda):
+    """A 64-layer SSM smoke model served through the engine's fused
+    decode: every call, its eager warm-up and its graph replays alike,
+    counts k x 64 launches of each step kernel (no capture counts), and
+    no scan launches outside the prefills."""
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"),
+                              num_layers=64)
+    params = TM.init_params(cfg, seed=3, device=cuda)
+    eng = TT.SlotEngine("a", params, cfg, n_slots=4, max_len=64, device=cuda)
+    rng = np.random.default_rng(2)
+    for n in (7, 11):
+        eng.prefill_batch([rng.integers(0, cfg.vocab_size, n)
+                           .astype(np.int32)])
+    scans = mamba_scan.launches
+    for k in (1, 3, 1, 3, 3):
+        before = (mamba_conv_step.launches, mamba_ssm_step.launches)
+        eng.decode_fused(k)
+        torch.cuda.synchronize()
+        assert (mamba_conv_step.launches - before[0],
+                mamba_ssm_step.launches - before[1]) == (64 * k, 64 * k)
+    assert eng.graphs.replays == 3 and mamba_scan.launches == scans
 
 
 def test_ssm_smoke_model_on_card_matches_cpu(cuda):

@@ -18,6 +18,8 @@ another order than the sequential scan); greedy tokens equal up to the
 first step whose JAX top-2 gap is below 1e-4; engine decisions (tokens,
 resolvers, hops, logical steps) identical.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +205,66 @@ def test_mamba_prefill_and_decode_match_jax(smoke, seq):
         for name in ("conv", "ssm"):
             np.testing.assert_allclose(cache[name].numpy(),
                                        np.asarray(cj[name]), **MIXER_TOL)
+
+
+def _mixer_params(n, seed):
+    """Numpy f32 mixer params for the smoke width (d 128, d_inner 256,
+    dt_rank 8, d_conv 4) at d_state ``n``, scaled so that every term of
+    the step is of order one."""
+    di, r = 256, 8
+    shapes = {"in_proj": ((128, 2 * di), 0.1), "conv_w": ((4, di), 0.5),
+              "conv_b": ((di,), 0.1), "x_proj": ((di, r + 2 * n), 0.1),
+              "dt_proj_w": ((r, di), 0.3), "D": ((di,), 1.0),
+              "out_proj": ((di, 128), 0.1)}
+    p = {k: _rand(seed + i, shape, scale)
+         for i, (k, (shape, scale)) in enumerate(shapes.items())}
+    rng = np.random.default_rng(seed + 10)
+    p["dt_proj_b"] = rng.uniform(-4.0, -2.0, (di,)).astype(np.float32)
+    p["A_log"] = rng.uniform(0.0, 1.1, (di, n)).astype(np.float32)
+    return p
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.float32],
+                         ids=["bf16_pool", "widened_f32_pool"])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_mamba_decode_steps_match_jax(n, pool, rows):
+    """Three decode steps after a prefill at every d_state the step
+    kernels take, under f32 weights, from a narrow bf16 conv pool (read
+    widened, written back rounded, the pool keeping its dtype) and from a
+    widened f32 one: each step's output, conv and SSM state against the
+    JAX ``mamba_decode`` given the same cache, both caches written in
+    place (the same tensors, the conv state shifted by one tap)."""
+    jcfg, tcfg = (dataclasses.replace(c, ssm=dataclasses.replace(
+        c.ssm, d_state=n)) for c in (jax_smoke_config(ARCH),
+                                     get_smoke_config(ARCH)))
+    npp = _mixer_params(n, seed=40 + n)
+    pt = {k: _t(v) for k, v in npp.items()}
+    pj = {k: jnp.asarray(v) for k, v in npp.items()}
+    _, cache = TMB.mamba_prefill(pt, tcfg, _t(_rand(41, (rows, 6, 128))))
+    cache = {"conv": cache["conv"].to(pool), "ssm": cache["ssm"]}
+    conv, ssm = cache["conv"], cache["ssm"]
+    conv_tol = MIXER_TOL if pool == torch.float32 else dict(atol=1e-5,
+                                                            rtol=2.0 ** -8)
+    for step in range(3):
+        xs = _rand(50 + step, (rows, 1, 128))
+        # copies: the port writes its cache in place, which a zero-copy
+        # array would see
+        jcache = {"conv": jnp.array(conv.float().numpy(), copy=True),
+                  "ssm": jnp.array(ssm.numpy(), copy=True)}
+        before = conv.clone()
+        out, cache2 = TMB.mamba_decode(pt, tcfg, _t(xs), cache)
+        outj, cj = JMB.mamba_decode(pj, jcfg, jnp.asarray(xs), jcache)
+        assert cache2 is cache and cache["conv"] is conv \
+            and cache["ssm"] is ssm                    # written in place
+        assert conv.dtype == pool and ssm.dtype == torch.float32
+        assert torch.equal(conv[:, :-1], before[:, 1:])
+        np.testing.assert_allclose(out.numpy(), np.asarray(outj),
+                                   **MIXER_TOL)
+        np.testing.assert_allclose(ssm.numpy(), np.asarray(cj["ssm"]),
+                                   **MIXER_TOL)
+        np.testing.assert_allclose(conv.float().numpy(),
+                                   np.asarray(cj["conv"]), **conv_tol)
 
 
 # ---------------------------------------------------------------------------
